@@ -36,3 +36,9 @@ def tiny(arch: str, **kw):
 def rng_key():
     import jax
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is not "
+        "available (the PyTorch port's kernel tests)")
