@@ -1,34 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py          # from the repository root, one card
 
-Builds the hand-written CUDA kernel from ``src/repro_torch`` on first use
-(nvcc, sm_90a), then runs, each phase printing one JSON line and any
-failure raising (exit code != 0):
+Builds the hand-written CUDA kernels from ``src/repro_torch`` on first use
+(one nvcc per source, started together, sm_90a), then runs, each phase
+printing JSON lines and any failure raising (exit code != 0):
 
-1. ``device``      — torch/CUDA versions; the card must be there.
-2. ``kernel_nbr``  — the ε-neighbour kernel against its plain PyTorch
-                     version on the card (N = 20 ... 16384, two ε): counts
-                     and packed bits equal, except bits at pairs whose
-                     float64 squared distance lies within 1e-6·ε² of ε²
-                     (counted and printed); DBSCAN labels equal; times.
-3. ``quickstart``  — ``examples/quickstart.py``'s config and schedule
-                     through ``repro_torch`` on the card, with its asserts.
-4. ``full_history``— the default config (analysis every 512 windows) over
-                     4096 windows of 32 samples cycling the 7 simulator
-                     archetypes: DBSCAN over the full 4096-window ring.
+1. ``device``        — torch/CUDA versions; the card must be there.
+2. ``kernel_nbr``    — the ε-neighbour kernel against its plain PyTorch
+                       version (N = 20 ... 16384, two ε): counts and packed
+                       bits equal, except bits at pairs whose float64
+                       squared distance lies within 1e-6·ε² of ε² (counted
+                       and printed); DBSCAN labels equal; times.
+3. ``kernel_flash``  — the GQA flash-attention kernel against its plain
+                       version: the reference's sweep in fp32 and bf16,
+                       qwen2-1.5b's serving and long shapes, a gemma2 case;
+                       times beside SDPA and the bound at qwen2's shapes.
+4. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
+                       through ``repro_torch`` on the card, with its asserts.
+5. ``full_history``  — the default config (analysis every 512 windows) over
+                       4096 windows of 32 samples cycling the 7 simulator
+                       archetypes: DBSCAN over the full 4096-window ring.
+6. ``serving``       — KERMIT tuning a live qwen2-1.5b server at full width
+                       (bf16, random weights from seed 0) with
+                       ``attn_impl="pallas"``: diurnal night -> day traffic
+                       through ``KermitSession`` + ``ServeExecutor``, with
+                       the asserts of ``tests/test_serving_autonomic.py``.
+7. ``serving_parity``— prefill logits on the pallas route against the xla
+                       route: reduced qwen2 in fp32 (asserted at 1e-4), and
+                       the full model in bf16 (printed).
+8. ``profile``       — one full-width serve call under torch.profiler.
 
-For the two main-path phases the kernel's launch counter is set to 0 just
-before the run and read just after; each must equal the number of
-analyses.  Every input the main path gave DBSCAN is then run through the
-kernel and its plain version again and held to the same parity, and the
-main path's labels to theirs.  Then one ``{"kernels": [...]}`` line, the card's name and power
-limit as nvidia-smi reports them, and the final ``{"ok": true, ...}`` line.
-Imports nothing of JAX or of the JAX package.
+For each main-path phase every kernel's launch counter is set to 0 just
+before the run and read just after: the ε-neighbour kernel must have run
+once per analysis, the attention kernel once per layer of every prefill
+(28 × serve calls).  The inputs the main path gave each kernel are then
+run through the kernel and its plain version again and held to the same
+parity.  Then one ``{"kernels": [...]}`` line, the card's name and power
+limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
+line.  Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
@@ -43,21 +58,32 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs.base import Tunables, reduced  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import analyser as A  # noqa: E402
 from repro_torch.core.dbscan import labels_from_adjacency  # noqa: E402
 from repro_torch.core.simulator import (ARCHETYPES,  # noqa: E402
                                         archetype_stats)
 from repro_torch.kernels import cuda_build  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import pairdist as P  # noqa: E402
 from repro_torch.kermit import (AnalysisConfig, EventKind,  # noqa: E402
-                                KermitConfig, KermitSession, MonitorConfig,
-                                PlanConfig, SimulatorExecutor)
+                                KermitConfig, KermitSession, KnowledgeConfig,
+                                MonitorConfig, PlanConfig, ServeConfig,
+                                ServeEngine, ServeExecutor, SimulatorExecutor,
+                                TrafficGenerator, run_serving_session)
+from repro_torch.models import model as M  # noqa: E402
 
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores, dense bf16 in them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 NEAR = 1e-6            # relative band around ε² where a bit may differ
 
@@ -166,14 +192,18 @@ def time_kernel(x, eps: float, block: int = 128) -> dict:
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
 
 
+def phase_build() -> None:
+    """Build both kernels, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    cuda_build.build("nbr_adjacency", "flash_attention")
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in cuda_build.BUILD_LOGS.items()}
+    emit("kernel_build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+
+
 def phase_kernel(dev) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    cuda_build.load("nbr_adjacency")
-    ptxas = [ln.strip() for ln in
-             cuda_build.BUILD_LOGS.get("nbr_adjacency", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("kernel_build", seconds=time.perf_counter() - t0, ptxas=ptxas)
     for n in (20, 130, 257, 4096, 16384):
         x = torch.from_numpy(window_means(n, seed=n)).to(dev)
         for eps in (0.35, 0.3):
@@ -262,10 +292,11 @@ def phase_quickstart(dev):
     return launches, check_main_path("quickstart", seen, dev)
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, per_kernel: dict | None = None) -> dict:
     """Run ``fn`` once under torch.profiler: wall seconds (profiler on),
     device-busy seconds (sum of CUDA kernel durations, one stream) and the
-    kernels that took most of it."""
+    kernels that took most of it; ``per_kernel`` receives every kernel's
+    (launches, ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -280,11 +311,13 @@ def device_profile(fn) -> dict:
             n, t = by_name.get(e.name, (0, 0))
             by_name[e.name] = (n + 1, t + us)
     busy = sum(t for _, t in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    if per_kernel is not None:
+        per_kernel.update({name: (n, t / 1e3) for name, (n, t) in ranked})
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1 - busy / wall) if busy else None,
             "launches": sum(n for n, _ in by_name.values()),
-            "top": [(name[:60], n, t / 1e3) for name, (n, t) in top]}
+            "top": [(name[:60], n, t / 1e3) for name, (n, t) in ranked[:6]]}
 
 
 def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
@@ -366,6 +399,280 @@ def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
     return launches, check_main_path("full_history", seen, dev), x_last
 
 
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# B, Sq, Skv, H, K, d, causal, window, softcap (tests/test_kernels.py)
+ATTN_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 8, 1, 32, True, 64, 50.0),
+    (2, 64, 128, 4, 4, 64, False, 0, 0.0),
+    (1, 96, 96, 2, 2, 128, True, 0, 30.0),
+]
+# Sq > Skv under a sliding window: query rows 111 and later see no key,
+# and average v over the KV as the reference pads it
+EMPTY_ROWS_CASE = (1, 200, 96, 4, 2, 32, True, 16, 0.0)
+QWEN2 = dict(H=12, K=2, d=128)            # qwen2-1.5b's attention heads
+MAIN_SHAPE = (8, 48)                       # (B, S): a day-phase prefill
+# the serving path's prefills: serve_batch in {2, 4, 8}, prompts of 16
+# (night) and 48 (day) tokens; then two long prompts
+QWEN2_SHAPES = ((2, 16), (2, 48), (4, 16), (4, 48), (8, 16), (8, 48),
+                (1, 2048), (1, 8192))
+
+
+def flash_tol(dtype) -> tuple[float, float]:
+    """(atol, rtol) for |kernel − plain| <= atol + rtol·|plain|.  fp32: the
+    reference's 2e-5.  bf16 outputs: kernel and plain both compute in fp32
+    and differ only in sum order before the final rounding, which moves a
+    value by at most one bf16 step, 2^-7 of it; atol 1e-3 covers values
+    near 0."""
+    return (2e-5, 2e-5) if dtype == torch.float32 else (1e-3, 2 ** -7)
+
+
+def attn_inputs(dev, B, Sq, Skv, H, K, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=dev).to(dtype)
+                 for s in ((B, Sq, H, d), (B, Skv, K, d), (B, Skv, K, d)))
+
+
+def compare_flash(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  bk=128) -> float:
+    """Kernel vs plain version on the same inputs; raises past the
+    tolerance, returns the max abs difference."""
+    got = FA._flash_fwd_cuda(q, k, v, causal=causal, window=window,
+                             softcap=softcap, bk=bk)
+    want = FA._flash_fwd_plain(q, k, v, causal=causal, window=window,
+                               softcap=softcap, bk=bk)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    atol, rtol = flash_tol(q.dtype)
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"flash kernel differs from plain by {err} "
+                             f"({tuple(q.shape)}, {q.dtype})")
+    return err
+
+
+def flash_bound(B, S, H, K, d, elem=2) -> dict:
+    """Least time for causal attention at (B, S): each of q, k, v and out
+    read or written once; 4·d flops per visible (query, key) pair and
+    head, S(S+1)/2 visible pairs per sequence."""
+    bytes_ = elem * B * S * d * (2 * H + 2 * K)
+    flops = 4 * d * H * B * S * (S + 1) / 2
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_fp32_ms": max(t_bytes, flops / PEAK_FP32_FLOPS) * 1e3,
+            "flops": flops, "bytes": bytes_}
+
+
+def time_flash(dev, B, S) -> dict:
+    q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=S, **QWEN2)
+    reps = max(3, min(200, int(2e9 / (S * S * B))))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = {"B": B, "S": S,
+           "ms": time_ms(lambda: FA._flash_fwd_cuda(q, k, v), reps),
+           "plain_ms": time_ms(lambda: FA._flash_fwd_plain(q, k, v),
+                               max(1, reps // 20), groups=3),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True), reps)}
+    rec.update(flash_bound(B, S, **QWEN2))
+    return rec
+
+
+def phase_kernel_flash(dev) -> dict:
+    for case in ATTN_CASES + [EMPTY_ROWS_CASE]:
+        B, Sq, Skv, H, K, d, causal, win, cap = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(dev, B, Sq, Skv, H, K, d, dtype)
+            emit("kernel_flash", case=list(case), dtype=str(dtype),
+                 max_abs_err=compare_flash(q, k, v, causal=causal,
+                                           window=win, softcap=cap))
+    q, k, v = attn_inputs(dev, 1, 512, 512, 16, 8, 224, torch.bfloat16)
+    emit("kernel_flash", case="gemma2-9b heads (H=16, K=8, d=224, "
+         "window 64, softcap 50)", S=512, dtype="bf16",
+         max_abs_err=compare_flash(q, k, v, window=64, softcap=50.0))
+    timed = {}
+    for B, S in QWEN2_SHAPES:
+        q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=1,
+                              **QWEN2)
+        rec = time_flash(dev, B, S)
+        rec["max_abs_err"] = compare_flash(q, k, v)
+        if S >= 2048:
+            # long rows in fp32 too, where the tolerance is 2e-5
+            q, k, v = attn_inputs(dev, B, S, S, dtype=torch.float32, seed=2,
+                                  **QWEN2)
+            rec["max_abs_err_fp32"] = compare_flash(q, k, v)
+        emit("kernel_flash", case="qwen2-1.5b", dtype="bf16", **rec)
+        timed[(B, S)] = rec
+    return timed
+
+
+# ---------------------------------------------------------------------------
+# serving: KERMIT tuning a live qwen2-1.5b server
+# ---------------------------------------------------------------------------
+
+SERVE_INITIAL = Tunables(attn_impl="pallas", serve_batch=8, cache_len=64)
+
+
+def serve_config(initial: Tunables) -> KermitConfig:
+    """The session config of tests/test_serving_autonomic.py:179-184."""
+    return KermitConfig(
+        monitor=MonitorConfig(window_size=8),
+        analysis=AnalysisConfig(interval=6, min_windows=6),
+        knowledge=KnowledgeConfig(drift_eps=0.45),
+        plan=PlanConfig(space={"serve_batch": [2, 4, 8], "cache_len": [64]},
+                        default_tunables=initial.as_dict()))
+
+
+def flash_key(q, k, kw) -> tuple:
+    return (tuple(q.shape), tuple(k.shape), q.dtype,
+            tuple(sorted(kw.items())))
+
+
+@contextlib.contextmanager
+def flash_inputs(first: dict, last: collections.deque, n: int):
+    """Record the (q, k, v, kwargs) of the first ``n`` kernel launches of
+    every distinct (shape, dtype, options) — one prefill's layers — and of
+    the last ``n`` launches: references only (the path makes new q, k, v
+    for every layer and does not modify them)."""
+    real = FA._flash_fwd_cuda
+
+    def run(q, k, v, kv_len=None, **kw):
+        rec = (q, k, v, kw)
+        recs = first.setdefault(flash_key(q, k, kw), [])
+        if len(recs) < n:
+            recs.append(rec)
+        last.append(rec)
+        return real(q, k, v, kv_len, **kw)
+    FA._flash_fwd_cuda = run
+    try:
+        yield
+    finally:
+        FA._flash_fwd_cuda = real
+
+
+def phase_serving(dev):
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, seed=0, initial=SERVE_INITIAL, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    traffic = TrafficGenerator.diurnal(window_size=8, seed=0,
+                                       night_windows=12, day_windows=12)
+    ex = ServeExecutor(eng, traffic, config=ServeConfig(probe_repeats=3),
+                       initial=SERVE_INITIAL)
+    events, seen, reports = [], [], []
+    first, last = {}, collections.deque(maxlen=cfg.n_layers)
+    calls0 = eng.stats["serve_calls"]
+    with dbscan_inputs(seen), flash_inputs(first, last, cfg.n_layers), \
+            capture(eng, "serve", reports, lambda a, out: out), \
+            KermitSession(serve_config(SERVE_INITIAL), executor=ex,
+                          device=dev) as session:
+        session.subscribe(None, events.append)
+        P.LAUNCHES = 0
+        FA.LAUNCHES = 0
+        t0 = time.perf_counter()
+        final = run_serving_session(session, ex)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        nbr_launches, flash_launches = P.LAUNCHES, FA.LAUNCHES
+        analyses = sum(e.kind == "analysis" for e in session.events)
+    calls = eng.stats["serve_calls"] - calls0
+
+    wl = ex.window_log
+    change_w = traffic.phase_boundaries()[0]
+    changes = [wl[i]["window"] for i in range(1, len(wl))
+               if wl[i]["tunables"] != wl[i - 1]["tunables"]]
+    replans = [w for w in changes if w >= change_w]
+    kinds = {e.kind for e in events}
+    assert len(wl) == traffic.n_windows, len(wl)
+    assert replans, (changes, sorted(kinds))
+    assert EventKind.DRIFT.value in kinds and EventKind.RETUNE.value in kinds
+    assert final == ex.current, (final, ex.current)
+    assert flash_launches == cfg.n_layers * calls == cfg.n_layers * len(
+        reports), (flash_launches, calls)
+    assert nbr_launches == analyses == len(seen) > 0, (nbr_launches, analyses)
+
+    def phase_stats(name):
+        rows = [w for w in wl if w["phase"] == name]
+        return {"windows": len(rows),
+                "p99_median_s": statistics.median(w["p99"] for w in rows),
+                "mean_latency_s": statistics.mean(w["mean"] for w in rows),
+                "tokens_per_s_median": statistics.median(
+                    w["tokens_per_s"] for w in rows)}
+    by_shape = collections.defaultdict(list)
+    for r in reports:
+        by_shape[(r.batch, r.prompt_len)].append(r)
+    w0 = replans[0]
+    before = [w["p99"] for w in wl if change_w <= w["window"] < w0]
+    emit("serving", model=cfg.name, params_init_s=init_s, seconds=seconds,
+         windows=len(wl), serve_calls=calls, decode_steps=sum(
+             r.steps for r in reports), analyses=analyses,
+         flash_launches=flash_launches, nbr_launches=nbr_launches,
+         retunes=[(e.window_id, e.tunables["serve_batch"]) for e in events
+                  if e.kind == EventKind.RETUNE.value],
+         changes=changes, first_day_replan=w0,
+         p99_day_before_replan=statistics.median(before) if before
+         else None,
+         p99_day_after_replan=statistics.median(
+             w["p99"] for w in wl if w["window"] >= w0),
+         night=phase_stats("night"), day=phase_stats("day"),
+         final={k: getattr(final, k) for k in ("serve_batch", "cache_len",
+                                               "attn_impl")},
+         per_call={f"B{b}xS{s}": {
+             "calls": len(rs),
+             "prefill_s_median": statistics.median(r.prefill_s for r in rs),
+             "decode_s_per_step_median": statistics.median(
+                 r.decode_s / max(r.steps, 1) for r in rs)}
+             for (b, s), rs in sorted(by_shape.items())})
+
+    # every layer of the first prefill of each shape the path ran, and of
+    # the last prefill
+    recorded = [r for recs in first.values() for r in recs] + list(last)
+    assert all(len(recs) == cfg.n_layers for recs in first.values())
+    flash = [compare_flash(q, k, v, **kw) for q, k, v, kw in recorded]
+    shapes = sorted({(r.batch, r.prompt_len) for r in reports})
+    compared = sorted({tuple(q.shape[:2]) for q, _, _, _ in recorded})
+    assert compared == shapes, (compared, shapes)
+    emit("main_path_parity", of="serving", kernel="flash_attention",
+         inputs=len(flash), shapes=compared, max_abs_err=max(flash))
+    nbr = check_main_path("serving", seen, dev)
+    return eng, {"flash": flash_launches, "nbr": nbr_launches,
+                 "flash_parity": flash, "nbr_parity": nbr}
+
+
+def phase_serving_parity(dev, eng) -> None:
+    """Prefill logits on the pallas route against the xla route."""
+    small = reduced(get_config("qwen2-1.5b"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(gen, small)
+    batch = {"tokens": torch.randint(0, small.vocab, (4, 48), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    lp = M.forward(params, small, batch, Tunables(attn_impl="pallas"))[0]
+    lx = M.forward(params, small, batch, Tunables(attn_impl="xla"))[0]
+    err = float((lp - lx).abs().max())
+    if not torch.allclose(lp, lx, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"reduced qwen2 pallas vs xla logits: {err}")
+    B, S = MAIN_SHAPE
+    tok = eng._token_batch(S, B)
+    fp = M.forward(eng.params, eng.cfg, tok, Tunables(attn_impl="pallas"))[0]
+    fx = M.forward(eng.params, eng.cfg, tok, Tunables(attn_impl="xla"))[0]
+    gp = eng.serve(batch=B, prompt_len=S, gen=16,
+                   tunables=SERVE_INITIAL).generated
+    gx = eng.serve(batch=B, prompt_len=S, gen=16,
+                   tunables=SERVE_INITIAL.replace(attn_impl="xla")).generated
+    emit("serving_parity", reduced_fp32_max_abs_err=err, tolerance=1e-4,
+         full_bf16_max_abs_logit_diff=float((fp.float() - fx.float())
+                                            .abs().max()),
+         full_bf16_logit_absmax=float(fx.float().abs().max()),
+         full_bf16_last_argmax_agree=float(
+             (fp[:, -1].argmax(-1) == fx[:, -1].argmax(-1)).float().mean()),
+         full_bf16_greedy_token_agree=float((gp == gx).mean()),
+         full_bf16_greedy_first_token_agree=float(
+             (gp[:, 0] == gx[:, 0]).mean()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -378,10 +685,37 @@ def main() -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi)
 
-    phase_kernel(dev)
+    phase_build()
+    timed = {}
+    for name, fn in (("kernel_nbr", lambda: phase_kernel(dev)),
+                     ("kernel_flash", lambda: timed.update(
+                         phase_kernel_flash(dev)))):
+        t0 = time.perf_counter()
+        fn()
+        emit("phase_seconds", of=name, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     quick_launches, quick = phase_quickstart(dev)
     full_launches, full, x_last = phase_full_history(dev)
-    main = quick + full
+    emit("phase_seconds", of="quickstart+full_history",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eng, served = phase_serving(dev)
+    emit("phase_seconds", of="serving", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_serving_parity(dev, eng)
+    B, S = MAIN_SHAPE
+    per_kernel = {}
+    prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=16,
+                                            tunables=SERVE_INITIAL),
+                          per_kernel)
+    flash_dev = [t / n for name, (n, t) in per_kernel.items()
+                 if "flash_fwd_kernel" in name]
+    emit("profile", what=f"serve call B={B} prompt={S} gen=16 (qwen2-1.5b, "
+         "bf16, pallas)", flash_kernel_ms=flash_dev, **prof)
+    emit("phase_seconds", of="serving_parity+profile",
+         seconds=time.perf_counter() - t0)
+
+    main = quick + full + served["nbr_parity"]
     # timed at the main path's largest input: the last analysis, over the
     # full ring
     x_main = torch.from_numpy(x_last).to(dev)
@@ -392,12 +726,14 @@ def main() -> int:
     kern = [t / n for name, n, t in prof["top"] if "nbr_adjacency" in name]
     device_ms = kern[0] if kern else None        # per launch the profiler saw
     emit("profile", what="nbr_adjacency x20", **prof)
+    fl = timed[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "nbr_adjacency", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
-        "launches": quick_launches + full_launches,
+        "launches": quick_launches + full_launches + served["nbr"],
         "launches_by_phase": {"quickstart": quick_launches,
-                              "full_history": full_launches},
+                              "full_history": full_launches,
+                              "serving": served["nbr"]},
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -410,7 +746,21 @@ def main() -> int:
                                               for r in main)},
         "tolerance": "counts and bits equal; a bit may differ only where "
                      "the float64 squared distance is within 1e-6·ε² of ε²; "
-                     "labels equal"}]}),
+                     "labels equal"}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_REPLACES, "launches": served["flash"],
+        "launches_by_phase": {"serving": served["flash"]},
+        "max_abs_err": max(served["flash_parity"]),
+        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "bound_fp32_ms": fl["bound_fp32_ms"],
+        "library_ms": fl["library_ms"], "library": "torch.nn.functional."
+        "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "shape": {"B": B, "S": S, **QWEN2, "dtype": "bf16"},
+        "device_ms": flash_dev[0] if flash_dev else None,
+        "parity": {"main_path_inputs": len(served["flash_parity"])},
+        "tolerance": "|kernel - plain| <= 1e-3 + 2^-7·|plain| in bf16 (one "
+                     "bf16 step), 2e-5 + 2e-5·|plain| in fp32"}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

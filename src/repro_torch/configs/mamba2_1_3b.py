@@ -1,0 +1,9 @@
+"""mamba2-1.3b — pure SSD (state-space duality), attention-free [arXiv:2405.21060]."""
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b", family="ssm",
+    n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab=50280,
+    ssm=SSMConfig(d_state=128, head_dim=64, expand=2),
+)

@@ -35,6 +35,21 @@ def predictor_params_from_jax(params, device=None) -> dict:
     return torch.tensor(np.asarray(params, np.float32), device=dev)
 
 
+def model_params_from_jax(params, device=None, dtype=None):
+    """A reference parameter pytree (``repro.models.model.init``; a nested
+    dict of arrays) as the port's nested dict of tensors, same keys and
+    shapes.  Each leaf keeps its dtype (bf16 passes exactly through
+    float32) unless ``dtype`` is given."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: model_params_from_jax(v, dev, dtype)
+                for k, v in params.items()}
+    a = np.asarray(params)
+    name = str(a.dtype)
+    t = torch.tensor(a.astype(np.float32) if name == "bfloat16" else a)
+    return t.to(device=dev, dtype=dtype or getattr(torch, name))
+
+
 def workload_db_from_reference(path, device=None, **kw) -> WorkloadDB:
     """A ``workloads.json`` written by ``repro.core.knowledge.WorkloadDB``
     (format v1–v3), loaded into the port's WorkloadDB."""

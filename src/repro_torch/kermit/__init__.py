@@ -1,8 +1,8 @@
 """repro_torch.kermit — the public facade of the port.
 
-The slice-1 subset of ``repro.kermit.__all__``: the config tree, the
-session, the executors and the event vocabulary.  Chaos, fleet, serving
-and the supervisor arrive with later slices (ROADMAP queue A).
+The ported subset of ``repro.kermit.__all__``: the config tree, the
+session, the executors, the event vocabulary and autonomic serving.
+Chaos, fleet and the supervisor arrive with later slices (ROADMAP).
 
     from repro_torch.kermit import KermitConfig, KermitSession, SimulatorExecutor
     with KermitSession(cfg, executor=SimulatorExecutor(schedule)) as s:
@@ -17,6 +17,9 @@ from repro_torch.kermit.executor import (BatchExecutor, CallableExecutor,
                                          Executor, ExecutorObjective,
                                          SimulatorExecutor)
 from repro_torch.kermit.session import KermitSession
+from repro_torch.kermit.serving import (SERVE_SPACE, ServeConfig, ServeEngine,
+                                        ServeExecutor, TrafficGenerator,
+                                        TrafficPhase, run_serving_session)
 
 __all__ = [
     "AnalysisConfig",
@@ -34,6 +37,13 @@ __all__ = [
     "KnowledgeConfig",
     "MonitorConfig",
     "PlanConfig",
+    "SERVE_SPACE",
+    "ServeConfig",
+    "ServeEngine",
+    "ServeExecutor",
     "SimulatorExecutor",
+    "TrafficGenerator",
+    "TrafficPhase",
     "resolve_impl",
+    "run_serving_session",
 ]

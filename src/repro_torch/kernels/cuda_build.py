@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``kernels/build/`` (listed in
 ``.gitignore``), named by a hash of the source so an edited kernel is
-rebuilt, and loaded with ``ctypes``.  Only sources in this package are
-built.  Nothing here runs at import time.
+rebuilt, and loaded with ``ctypes``.  ``build(*names)`` starts one
+``nvcc`` per missing library, all at once, so a caller that needs several
+kernels waits for the slowest build rather than their sum.  Only sources
+in this package are built.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,10 +21,15 @@ _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+# per-kernel flags on top of NVCC_FLAGS: nbr_adjacency's thresholds must
+# be bit-exact, so nvcc may not contract its products and sums into FMAs;
+# flash_attention is held to a tolerance and keeps nvcc's contraction
+KERNEL_FLAGS = {"nbr_adjacency": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict = {}                  # (name, symbol) -> bound C function
 BUILD_LOGS: dict[str, str] = {}   # name -> nvcc/ptxas output of the build
 
 
@@ -38,29 +45,62 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
+    """The build's path, named by a hash of the source and the flags."""
     src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> dict:
+    """The loaded libraries for ``csrc/<name>.cu`` of each name; the
+    missing ones are compiled first, one ``nvcc`` each, concurrently."""
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if name in _LIBS or name in procs or out.exists():
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(_SRC_DIR / f"{name}.cu")]
+        procs[name] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        BUILD_LOGS[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{BUILD_LOGS[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _LIBS[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(_SRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {proc.returncode}):\n{BUILD_LOGS[name]}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+    return lib if lib is not None else build(name)[name]
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, bound once with
+    ``argtypes``; it returns the launch's ``cudaError_t`` as a C int."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(name, symbol)] = fn
+    return fn

@@ -107,6 +107,10 @@ def _neighbor_adjacency_plain(x, *, eps_sq: float, block: int):
 
 
 _FP = (16, 32, 64)     # feature widths the kernel is instantiated for
+# nbr_adjacency(x, n, npad, fp, eps_sq, counts, packed, stream)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
 
 
 def _neighbor_adjacency_cuda(x, *, eps_sq: float, block: int):
@@ -136,11 +140,7 @@ def _neighbor_adjacency_cuda(x, *, eps_sq: float, block: int):
         x = xp
     counts = torch.empty(np_, dtype=torch.int32, device=x.device)
     packed = torch.empty((np_, np_ // 8), dtype=torch.uint8, device=x.device)
-    fn = cuda_build.load("nbr_adjacency").nbr_adjacency
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.function("nbr_adjacency", "nbr_adjacency", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), n, np_, fp, eps_sq, counts.data_ptr(),
                  packed.data_ptr(), torch.cuda.current_stream().cuda_stream)

@@ -1,0 +1,188 @@
+"""Decoder-only transformer LM — the ``dense`` family.
+
+Port of ``repro/models/transformer.py``.  Layers keep the reference's
+stacked layout (leading L axis); the reference's ``lax.scan`` over them is
+a Python loop, and gemma2's per-layer window rides along as a 0-dim
+tensor, as the traced scan scalar does in the reference.  Serving needs no
+gradient, so there is no rematerialisation policy here.
+
+MoE layers (``cfg.moe``) and the vlm patch prefix are not ported yet and
+raise ``NotImplementedError`` (ROADMAP queue A, item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import layers as L
+
+_MOE = ("MoE layers (cfg.moe) are not ported yet (ROADMAP queue A, item "
+        "14: models/moe.py)")
+_VLM = ("the vlm patch prefix is not ported yet (ROADMAP queue A, item 14: "
+        "the vlm family)")
+
+
+def _check_family(cfg) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(_MOE)
+    if cfg.family == "vlm":
+        raise NotImplementedError(_VLM)
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def layer_init(gen, cfg, dtype, n: int):
+    """``n`` stacked layers (leading axis n)."""
+    lead = (n,)
+    return {
+        "ln1": torch.zeros((n, cfg.d_model), dtype=dtype, device=gen.device),
+        "attn": L.attn_init(gen, cfg, dtype, lead=lead),
+        "ln2": torch.zeros((n, cfg.d_model), dtype=dtype, device=gen.device),
+        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
+    }
+
+
+def init(gen: torch.Generator, cfg):
+    """Parameters drawn from ``gen`` on ``gen.device``."""
+    _check_family(cfg)
+    dtype = _dtype(cfg)
+    params = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
+              "ln_f": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=gen.device)}
+    params["layers"] = layer_init(gen, cfg, dtype, cfg.n_layers)
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
+                                      dtype)
+    return params
+
+
+def layer_windows(cfg, n: int, device=None):
+    """Per-layer window scalars: 0 = full attention."""
+    idx = torch.arange(n, device=device)
+    if cfg.window_pattern == "alternating":
+        return torch.where(idx % 2 == 0, cfg.window, 0).to(torch.int32)
+    return torch.full((n,), cfg.window, dtype=torch.int32, device=device)
+
+
+def _unstack(stacked, n: int) -> list:
+    """A stacked parameter tree as ``n`` per-layer trees of views (one
+    ``unbind`` per leaf, no copies)."""
+    if isinstance(stacked, dict):
+        per = {k: _unstack(v, n) for k, v in stacked.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(stacked.unbind(0))
+
+
+def block_apply(p, x, cfg, tun, *, positions, window, prefix_len=0,
+                kv=None, kv_pos=None, kv_len=None, write_pos=None):
+    """One transformer block.  With ``kv``/``write_pos``: decode against
+    the cache (ck, cv), whose slot ``write_pos`` is written IN PLACE with
+    this token's key and value.  Returns (x, (k, v)); dense layers have
+    no auxiliary loss (the reference's is 0 for them)."""
+    if "moe" in p:
+        raise NotImplementedError(_MOE)
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if write_pos is not None:
+        q, k1, v1 = L.attn_qkv(p["attn"], h, cfg, positions)
+        ck, cv = kv
+        ck[:, write_pos] = k1[:, 0]
+        cv[:, write_pos] = v1[:, 0]
+        out = L.attention_xla(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
+                              causal=True, window=window, prefix_len=prefix_len,
+                              softcap=cfg.attn_softcap, kv_len=kv_len,
+                              q_chunk=tun.attn_q_chunk)
+        B = x.shape[0]
+        out = out.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+        h = out @ p["attn"]["wo"]
+        new_kv = (ck, cv)
+    else:
+        impl = "pallas" if tun.attn_impl == "pallas" else "xla"
+        h, new_kv = L.attn_apply(p["attn"], h, cfg, positions=positions,
+                                 causal=True, window=window,
+                                 prefix_len=prefix_len,
+                                 q_chunk=tun.attn_q_chunk, impl=impl)
+    x = x + h
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + L.mlp_apply(p["mlp"], h)
+    return x, new_kv
+
+
+def embed_input(params, cfg, batch):
+    """tokens -> (x, positions, prefix_len)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(_VLM)
+    tok = params["embed"][batch["tokens"]]
+    if cfg.scale_embed:
+        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
+    positions = torch.arange(tok.shape[1], device=tok.device)
+    return tok, positions, 0
+
+
+def _head(params, cfg, x):
+    x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    head = params.get("head")
+    logits = x @ head if head is not None else x @ params["embed"].T
+    return L.softcap(logits, cfg.final_softcap)
+
+
+def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
+    """Train / prefill forward.  Returns (logits, aux_loss, cache|None).
+
+    With ``return_cache`` the layers' keys and values go into ``cache``
+    ({"k", "v"}: (L, B, capacity, K, hd), capacity >= S), written in place
+    into positions [0, S) and cast to its dtype; without one, a cache of
+    exactly S positions in the model dtype is allocated."""
+    _check_family(cfg)
+    x, positions, prefix_len = embed_input(params, cfg, batch)
+    S = x.shape[1]
+    if return_cache and cache is None:
+        cache = init_cache(cfg, x.shape[0], S, device=x.device)
+    wins = layer_windows(cfg, cfg.n_layers, device=x.device).unbind(0)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i in range(cfg.n_layers):
+        x, (k, v) = block_apply(layers[i], x, cfg, tun, positions=positions,
+                                window=wins[i], prefix_len=prefix_len)
+        if return_cache:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+    logits = _head(params, cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, (cache if return_cache else None)
+
+
+def decode_step(params, cfg, batch, cache, tun):
+    """One-token decode. batch: {"tokens": (B,1), "pos": int}.
+    cache: {"k": (L,B,S,K,hd), "v": ...}, updated IN PLACE at ``pos`` and
+    returned.  Returns (logits, cache)."""
+    _check_family(cfg)
+    pos = int(batch["pos"])
+    tok = params["embed"][batch["tokens"]]
+    if cfg.scale_embed:
+        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
+    x = tok
+    dev = x.device
+    positions = torch.full((1,), pos, device=dev)
+    S = cache["k"].shape[2]
+    kv_pos = torch.arange(S, device=dev)
+    kv_len = pos + 1
+    wins = layer_windows(cfg, cfg.n_layers, device=dev).unbind(0)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i in range(cfg.n_layers):
+        x, _ = block_apply(layers[i], x, cfg, tun,
+                              positions=positions, window=wins[i],
+                              kv=(cache["k"][i], cache["v"][i]),
+                              kv_pos=kv_pos, kv_len=kv_len, write_pos=pos)
+    return _head(params, cfg, x), cache
+
+
+def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
+    """Zeroed KV cache {"k", "v"}: (L, batch, seq, K, hd) in ``dtype``
+    (default: the model dtype) on ``device`` (None: CUDA)."""
+    _check_family(cfg)
+    dtype = dtype or _dtype(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}

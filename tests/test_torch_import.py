@@ -31,8 +31,28 @@ from repro_torch.core.dbscan import dbscan
 x = np.concatenate([np.zeros((20, 16)), np.ones((20, 16)) * 5]).astype("f4")
 labels = dbscan(x, eps=0.5, min_pts=3, device="cpu")
 assert sorted(set(labels.tolist())) == [0, 1], labels
+
+from repro_torch.configs.base import Tunables
+from repro_torch.kermit import ServeEngine
+from repro_torch.kermit.serving import tiny_config
+eng = ServeEngine(tiny_config("qwen2-1.5b"), device="cpu")
+rep = eng.serve(batch=2, prompt_len=16, gen=3,
+                tunables=Tunables(attn_impl="pallas"))
+assert rep.generated.shape == (2, 4), rep.generated.shape
+print(" ".join(names))
 print(len(names))
 """
+
+# modules of the serving slice, each of which must be among those walked
+SERVING_SLICE = [
+    "repro_torch.configs.registry", "repro_torch.configs.qwen2_1_5b",
+    "repro_torch.runtime.telemetry", "repro_torch.models.layers",
+    "repro_torch.kernels.flash_attention", "repro_torch.models.transformer",
+    "repro_torch.models.model", "repro_torch.train.step",
+    "repro_torch.kermit.serving", "repro_torch.kermit.serving.traffic",
+    "repro_torch.kermit.serving.engine", "repro_torch.kermit.serving.executor",
+    "repro_torch.launch.serve",
+]
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -40,7 +60,9 @@ def test_every_module_imports_without_jax_or_reference():
                           capture_output=True, text=True, timeout=300,
                           env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20      # every module was walked
+    *walked, count = proc.stdout.split()
+    assert int(count) == len(walked) >= 40          # every module was walked
+    assert set(SERVING_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(

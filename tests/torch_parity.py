@@ -21,6 +21,16 @@ import torch
 torch.set_num_threads(1)
 
 
+def to_torch(a, dtype="float32"):
+    """A float32 numpy array as a CPU tensor of ``dtype`` (bf16 rounds to
+    nearest even, as ``astype`` does in JAX)."""
+    return torch.tensor(a).to(getattr(torch, dtype))
+
+
+def to_jax(a, dtype="float32"):
+    return jax.numpy.asarray(a).astype(dtype)
+
+
 def blobs(n, f, seed, spread=0.5, shift=3.0):
     """The reference tests' three-blob point cloud."""
     rng = np.random.default_rng(seed)
