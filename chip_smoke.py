@@ -15,36 +15,49 @@ printing JSON lines and any failure raising (exit code != 0):
                        and printed); DBSCAN labels equal; times.
 3. ``kernel_flash``  — the GQA flash-attention kernel against its plain
                        version: the reference's sweep in fp32 and bf16,
-                       qwen2-1.5b's serving and long shapes, a gemma2 case;
-                       times beside SDPA and the bound at qwen2's shapes.
-4. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
+                       qwen2-1.5b's serving and long shapes, a gemma2 case,
+                       zamba2-7b's shared block (d = 112); times beside
+                       SDPA and the bound.
+4. ``kernel_ssd``    — the SSD chunked-scan kernel against its plain
+                       version: the reference's sweep in fp32 and bf16,
+                       mamba2-1.3b's serving shapes, S = 2048 and 8192 in
+                       chunks of 256, a zamba2-7b shape; times beside the
+                       bound.
+5. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
                        through ``repro_torch`` on the card, with its asserts.
-5. ``full_history``  — the default config (analysis every 512 windows) over
+6. ``full_history``  — the default config (analysis every 512 windows) over
                        4096 windows of 32 samples cycling the 7 simulator
                        archetypes: DBSCAN over the full 4096-window ring.
-6. ``serving``       — KERMIT tuning a live qwen2-1.5b server at full width
+7. ``serving``       — KERMIT tuning a live qwen2-1.5b server at full width
                        (bf16, random weights from seed 0) with
                        ``attn_impl="pallas"``: diurnal night -> day traffic
                        through ``KermitSession`` + ``ServeExecutor``, with
                        the asserts of ``tests/test_serving_autonomic.py``.
-7. ``serving_parity``— prefill logits on the pallas route against the xla
+8. ``serving_parity``— prefill logits on the pallas route against the xla
                        route: reduced qwen2 in fp32 (asserted at 1e-4), and
-                       the full model in bf16 (printed).
-8. ``profile``       — one full-width serve call under torch.profiler.
+                       the full model in bf16 (printed); a profiled call.
+9. ``serving_ssm``, ``serving_ssm_parity`` — the same loop, checks and
+                       profile on mamba2-1.3b (chunks of 16).
+10. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
+                       few serve calls through both kernels, and a profiled
+                       call.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
-once per analysis, the attention kernel once per layer of every prefill
-(28 × serve calls).  The inputs the main path gave each kernel are then
-run through the kernel and its plain version again and held to the same
-parity.  Then one ``{"kernels": [...]}`` line, the card's name and power
-limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
+once per analysis, the attention kernel once per attention layer of every
+prefill (28 × serve calls for qwen2, 13 per zamba2 prefill), the SSD
+kernel once per SSD layer of every prefill (48 × serve calls for mamba2,
+81 per zamba2 prefill).  The inputs the main path gave each kernel are
+then run through the kernel and its plain version again and held to the
+same parity.  Then one ``{"kernels": [...]}`` line, the card's name and
+power limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
 line.  Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -69,6 +82,7 @@ from repro_torch.core.simulator import (ARCHETYPES,  # noqa: E402
 from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import pairdist as P  # noqa: E402
+from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kermit import (AnalysisConfig, EventKind,  # noqa: E402
                                 KermitConfig, KermitSession, KnowledgeConfig,
                                 MonitorConfig, PlanConfig, ServeConfig,
@@ -80,6 +94,8 @@ KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:30"
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, dense bf16 in them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -193,9 +209,9 @@ def time_kernel(x, eps: float, block: int = 128) -> dict:
 
 
 def phase_build() -> None:
-    """Build both kernels, one nvcc each, started together."""
+    """Build the three kernels, one nvcc each, started together."""
     t0 = time.perf_counter()
-    cuda_build.build("nbr_adjacency", "flash_attention")
+    cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in cuda_build.BUILD_LOGS.items()}
@@ -294,9 +310,10 @@ def phase_quickstart(dev):
 
 def device_profile(fn, per_kernel: dict | None = None) -> dict:
     """Run ``fn`` once under torch.profiler: wall seconds (profiler on),
-    device-busy seconds (sum of CUDA kernel durations, one stream) and the
-    kernels that took most of it; ``per_kernel`` receives every kernel's
-    (launches, ms)."""
+    device-busy seconds (sum of CUDA kernel durations, one stream), the
+    kernels that took most of it, and the host seconds spent reading the
+    trace afterwards; ``per_kernel`` receives every kernel's (launches,
+    ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -304,6 +321,7 @@ def device_profile(fn, per_kernel: dict | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -315,6 +333,7 @@ def device_profile(fn, per_kernel: dict | None = None) -> dict:
     if per_kernel is not None:
         per_kernel.update({name: (n, t / 1e3) for name, (n, t) in ranked})
     return {"wall_s": wall, "device_busy_s": busy,
+            "trace_processing_s": time.perf_counter() - t1,
             "idle_share": (1 - busy / wall) if busy else None,
             "launches": sum(n for n, _ in by_name.values()),
             "top": [(name[:60], n, t / 1e3) for name, (n, t) in ranked[:6]]}
@@ -414,6 +433,7 @@ ATTN_CASES = [
 # and average v over the KV as the reference pads it
 EMPTY_ROWS_CASE = (1, 200, 96, 4, 2, 32, True, 16, 0.0)
 QWEN2 = dict(H=12, K=2, d=128)            # qwen2-1.5b's attention heads
+ZAMBA2_ATTN = dict(H=32, K=32, d=112)     # zamba2-7b's shared block
 MAIN_SHAPE = (8, 48)                       # (B, S): a day-phase prefill
 # the serving path's prefills: serve_batch in {2, 4, 8}, prompts of 16
 # (night) and 48 (day) tokens; then two long prompts
@@ -466,8 +486,8 @@ def flash_bound(B, S, H, K, d, elem=2) -> dict:
             "flops": flops, "bytes": bytes_}
 
 
-def time_flash(dev, B, S) -> dict:
-    q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=S, **QWEN2)
+def time_flash(dev, B, S, heads=QWEN2) -> dict:
+    q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=S, **heads)
     reps = max(3, min(200, int(2e9 / (S * S * B))))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rec = {"B": B, "S": S,
@@ -476,7 +496,7 @@ def time_flash(dev, B, S) -> dict:
                                max(1, reps // 20), groups=3),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=True, enable_gqa=True), reps)}
-    rec.update(flash_bound(B, S, **QWEN2))
+    rec.update(flash_bound(B, S, **heads))
     return rec
 
 
@@ -505,6 +525,120 @@ def phase_kernel_flash(dev) -> dict:
             rec["max_abs_err_fp32"] = compare_flash(q, k, v)
         emit("kernel_flash", case="qwen2-1.5b", dtype="bf16", **rec)
         timed[(B, S)] = rec
+    # zamba2-7b's shared attention block at its serving prefill
+    B, S = MAIN_SHAPE
+    rec = time_flash(dev, B, S, ZAMBA2_ATTN)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_inputs(dev, B, S, S, dtype=dtype, seed=3,
+                              **ZAMBA2_ATTN)
+        rec[f"max_abs_err_{str(dtype)[6:]}"] = compare_flash(q, k, v)
+    emit("kernel_flash", case="zamba2-7b", dtype="bf16", **rec)
+    timed["zamba2"] = rec
+    return timed
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+# B, S, H, P, G, N, chunk (tests/test_kernels.py:80-84), each in fp32 and
+# bf16, and a chunk that leaves a partial 32-row tile
+SSD_CASES = [(2, 128, 4, 16, 1, 32, 32), (1, 256, 8, 32, 2, 16, 64),
+             (1, 64, 2, 8, 1, 8, 16), (1, 96, 4, 32, 2, 24, 48)]
+MAMBA2 = dict(H=64, P=64, G=1, N=128)      # mamba2-1.3b's SSD heads
+ZAMBA2 = dict(H=112, P=64, G=1, N=64)      # zamba2-7b's
+SSD_CHUNK = 16                             # the serving path's ssm_chunk
+# the serving path's prefills (serve_batch in {2, 4, 8}, prompts of 16 and
+# 48 tokens, chunks of 16), then two long prompts in chunks of 256
+SSD_SHAPES = ((2, 16, 16), (2, 48, 16), (4, 16, 16), (4, 48, 16),
+              (8, 16, 16), (8, 48, 16), (1, 2048, 256), (1, 8192, 256))
+
+
+# (atol, rtol) for |kernel − plain| <= atol + rtol·|plain|, y and state
+# alike: the reference's own bound between its kernel and ``ssd_chunked``
+# in fp32.  Both versions read the same values (bf16 inputs upcast
+# exactly) and compute in fp32, so bf16 inputs are held to it too.
+SSD_TOL = (1e-4, 1e-4)
+
+
+def ssd_inputs(dev, B, S, H, P, G, N, dtype, seed=0):
+    """The reference sweep's distributions: x normal, dt = softplus(normal),
+    A = −exp(0.3·normal), B and C 0.3·normal."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = normal(B, S, H, P).to(dtype)
+    dt = F.softplus(normal(B, S, H))
+    A = -torch.exp(normal(H) * 0.3)
+    Bm = (normal(B, S, G, N) * 0.3).to(dtype)
+    Cm = (normal(B, S, G, N) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def compare_ssd(x, dt, A, Bm, Cm, *, chunk) -> float:
+    """Kernel vs plain version on the same inputs; raises past the
+    tolerance, returns the max abs difference over y and the state."""
+    y, s = SSD._ssd_fwd_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+    wy, ws = SSD._ssd_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max(float((y - wy).abs().max()), float((s - ws).abs().max()))
+    atol, rtol = SSD_TOL
+    if not (torch.allclose(y, wy, rtol=rtol, atol=atol)
+            and torch.allclose(s, ws, rtol=rtol, atol=atol)):
+        raise AssertionError(f"SSD kernel differs from plain by {err} "
+                             f"({tuple(x.shape)}, N={Bm.shape[-1]}, "
+                             f"chunk={chunk}, {x.dtype})")
+    return err
+
+
+def ssd_bound(B, S, H, P, G, N, Q, elem=2) -> dict:
+    """Least time for the scan on an H100: x, B, C (``elem`` bytes) and dt
+    read once, y and the state (fp32) written once; per chunk 2·Q²·N
+    flops per group for C·Bᵀ, Q(Q+1)/2·(2P + 3) per head for the masked
+    scores times x, 4·Q·N·P per head for the state read and update,
+    against the fp32 CUDA-core peak."""
+    nc = S // Q
+    flops = B * nc * (G * 2 * Q * Q * N
+                      + H * (Q * (Q + 1) / 2 * (2 * P + 3) + 4 * Q * N * P))
+    bytes_ = (elem * (B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
+              + 4 * H + 4 * B * S * H * P + 4 * B * H * N * P)
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "flops": flops, "bytes": bytes_}
+
+
+def time_ssd(dev, B, S, Q, widths) -> dict:
+    args = ssd_inputs(dev, B, S, dtype=torch.bfloat16, seed=S, **widths)
+    reps = max(3, min(200, int(4e6 / (B * S * Q))))
+    rec = {"B": B, "S": S, "chunk": Q,
+           "ms": time_ms(lambda: SSD._ssd_fwd_cuda(*args, chunk=Q), reps),
+           "plain_ms": time_ms(lambda: SSD._ssd_fwd_plain(*args, chunk=Q),
+                               max(1, reps // 20), groups=3),
+           "library_ms": None}
+    rec.update(ssd_bound(B, S, Q=Q, **widths))
+    return rec
+
+
+def phase_kernel_ssd(dev) -> dict:
+    for case in SSD_CASES:
+        B, S, H, P, G, N, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(dev, B, S, H, P, G, N, dtype)
+            emit("kernel_ssd", case=list(case), dtype=str(dtype),
+                 max_abs_err=compare_ssd(*args, chunk=chunk))
+    timed = {}
+    for name, widths, shapes in (("mamba2-1.3b", MAMBA2, SSD_SHAPES),
+                                 ("zamba2-7b", ZAMBA2, ((8, 48, 16),))):
+        for B, S, Q in shapes:
+            rec = time_ssd(dev, B, S, Q, widths)
+            for dtype in (torch.bfloat16, torch.float32):
+                args = ssd_inputs(dev, B, S, dtype=dtype, seed=1, **widths)
+                rec[f"max_abs_err_{str(dtype)[6:]}"] = compare_ssd(
+                    *args, chunk=Q)
+            emit("kernel_ssd", case=name, dtype="bf16", **widths, **rec)
+            timed[(name, B, S)] = rec
     return timed
 
 
@@ -513,70 +647,120 @@ def phase_kernel_flash(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVE_INITIAL = Tunables(attn_impl="pallas", serve_batch=8, cache_len=64)
+SERVE_SPACE = {"serve_batch": [2, 4, 8], "cache_len": [64]}
+# mamba2: chunks of 16, so every 48-token day prefill carries its state
+# across 3 chunks; the chunk stays fixed, so the search is slice 2's
+SSM_INITIAL = Tunables(attn_impl="pallas", serve_batch=8, cache_len=64,
+                       ssm_chunk=SSD_CHUNK)
+SSM_SPACE = {"serve_batch": [2, 4, 8], "ssm_chunk": [SSD_CHUNK]}
+HYBRID_TUN = Tunables(attn_impl="pallas", cache_len=64, ssm_chunk=SSD_CHUNK)
 
 
-def serve_config(initial: Tunables) -> KermitConfig:
+def serve_config(initial: Tunables, space: dict) -> KermitConfig:
     """The session config of tests/test_serving_autonomic.py:179-184."""
     return KermitConfig(
         monitor=MonitorConfig(window_size=8),
         analysis=AnalysisConfig(interval=6, min_windows=6),
         knowledge=KnowledgeConfig(drift_eps=0.45),
-        plan=PlanConfig(space={"serve_batch": [2, 4, 8], "cache_len": [64]},
-                        default_tunables=initial.as_dict()))
+        plan=PlanConfig(space=space, default_tunables=initial.as_dict()))
 
 
-def flash_key(q, k, kw) -> tuple:
+def flash_key(a, kw) -> tuple:
+    q, k = a[0], a[1]
     return (tuple(q.shape), tuple(k.shape), q.dtype,
             tuple(sorted(kw.items())))
 
 
-@contextlib.contextmanager
-def flash_inputs(first: dict, last: collections.deque, n: int):
-    """Record the (q, k, v, kwargs) of the first ``n`` kernel launches of
-    every distinct (shape, dtype, options) — one prefill's layers — and of
-    the last ``n`` launches: references only (the path makes new q, k, v
-    for every layer and does not modify them)."""
-    real = FA._flash_fwd_cuda
+def ssd_key(a, kw) -> tuple:
+    return (tuple(a[0].shape), tuple(a[3].shape), a[0].dtype, kw["chunk"])
 
-    def run(q, k, v, kv_len=None, **kw):
-        rec = (q, k, v, kw)
-        recs = first.setdefault(flash_key(q, k, kw), [])
+
+# kernel name -> (module, wrapper, key of a launch's inputs, comparison)
+KERNELS = {
+    "flash_attention": (FA, "_flash_fwd_cuda", flash_key,
+                        lambda a, kw: compare_flash(*a[:3], **kw)),
+    "ssd_scan": (SSD, "_ssd_fwd_cuda", ssd_key,
+                 lambda a, kw: compare_ssd(*a, **kw)),
+}
+
+
+@contextlib.contextmanager
+def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
+    """Record the (args, kwargs) of the first ``n`` launches of kernel
+    ``name`` for every distinct (shape, dtype, options) — one prefill's
+    layers — and of the last ``last.maxlen`` launches: references only
+    (the path makes new inputs for every layer and does not modify
+    them)."""
+    module, attr, key, _ = KERNELS[name]
+    real = getattr(module, attr)
+
+    def run(*a, **kw):
+        rec = (a, kw)
+        recs = first.setdefault(key(a, kw), [])
         if len(recs) < n:
             recs.append(rec)
         last.append(rec)
-        return real(q, k, v, kv_len, **kw)
-    FA._flash_fwd_cuda = run
+        return real(*a, **kw)
+    setattr(module, attr, run)
     try:
         yield
     finally:
-        FA._flash_fwd_cuda = real
+        setattr(module, attr, real)
 
 
-def phase_serving(dev):
-    cfg = get_config("qwen2-1.5b")
+def reset_counters() -> None:
+    P.LAUNCHES = FA.LAUNCHES = SSD.LAUNCHES = 0
+
+
+def counters() -> dict:
+    return {"nbr_adjacency": P.LAUNCHES, "flash_attention": FA.LAUNCHES,
+            "ssd_scan": SSD.LAUNCHES}
+
+
+def check_recorded(phase: str, name: str, recorded: list) -> list:
+    errs = [KERNELS[name][3](a, kw) for a, kw in recorded]
+    emit("main_path_parity", of=phase, kernel=name, inputs=len(errs),
+         shapes=sorted({tuple(a[0].shape[:2]) for a, _ in recorded}),
+         max_abs_err=max(errs))
+    return errs
+
+
+def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
+                  per_call: dict):
+    """KERMIT tuning a live server of ``cfg`` at full width (bf16, random
+    weights from seed 0): diurnal night -> day traffic through
+    ``KermitSession`` + ``ServeExecutor``, with the asserts of
+    tests/test_serving_autonomic.py.  ``per_call``: launches of each
+    kernel per serve call (its layers that run it once per prefill)."""
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, seed=0, initial=SERVE_INITIAL, device=dev)
+    eng = ServeEngine(cfg, seed=0, initial=initial, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     traffic = TrafficGenerator.diurnal(window_size=8, seed=0,
                                        night_windows=12, day_windows=12)
     ex = ServeExecutor(eng, traffic, config=ServeConfig(probe_repeats=3),
-                       initial=SERVE_INITIAL)
+                       initial=initial)
     events, seen, reports = [], [], []
-    first, last = {}, collections.deque(maxlen=cfg.n_layers)
+    on_path = {k: n for k, n in per_call.items() if n}
+    first = {k: {} for k in on_path}
+    last = {k: collections.deque(maxlen=n) for k, n in on_path.items()}
     calls0 = eng.stats["serve_calls"]
-    with dbscan_inputs(seen), flash_inputs(first, last, cfg.n_layers), \
-            capture(eng, "serve", reports, lambda a, out: out), \
-            KermitSession(serve_config(SERVE_INITIAL), executor=ex,
-                          device=dev) as session:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(dbscan_inputs(seen))
+        for name, n in on_path.items():
+            stack.enter_context(launch_inputs(name, first[name], last[name],
+                                              n))
+        stack.enter_context(capture(eng, "serve", reports,
+                                    lambda a, out: out))
+        session = stack.enter_context(KermitSession(
+            serve_config(initial, space), executor=ex, device=dev))
         session.subscribe(None, events.append)
-        P.LAUNCHES = 0
-        FA.LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         final = run_serving_session(session, ex)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        nbr_launches, flash_launches = P.LAUNCHES, FA.LAUNCHES
+        launches = counters()
         analyses = sum(e.kind == "analysis" for e in session.events)
     calls = eng.stats["serve_calls"] - calls0
 
@@ -590,9 +774,18 @@ def phase_serving(dev):
     assert replans, (changes, sorted(kinds))
     assert EventKind.DRIFT.value in kinds and EventKind.RETUNE.value in kinds
     assert final == ex.current, (final, ex.current)
-    assert flash_launches == cfg.n_layers * calls == cfg.n_layers * len(
-        reports), (flash_launches, calls)
+    assert calls == len(reports) > 0, (calls, len(reports))
+    for name in ("flash_attention", "ssd_scan"):
+        assert launches[name] == per_call.get(name, 0) * calls, (
+            name, launches[name], calls)
+    nbr_launches = launches["nbr_adjacency"]
     assert nbr_launches == analyses == len(seen) > 0, (nbr_launches, analyses)
+    w0 = replans[0]
+    before = [w["p99"] for w in wl if change_w <= w["window"] < w0]
+    p99_before = statistics.median(before) if before else None
+    p99_after = statistics.median(w["p99"] for w in wl if w["window"] >= w0)
+    assert p99_before is None or p99_after <= p99_before, (p99_after,
+                                                           p99_before)
 
     def phase_stats(name):
         rows = [w for w in wl if w["phase"] == name]
@@ -604,22 +797,17 @@ def phase_serving(dev):
     by_shape = collections.defaultdict(list)
     for r in reports:
         by_shape[(r.batch, r.prompt_len)].append(r)
-    w0 = replans[0]
-    before = [w["p99"] for w in wl if change_w <= w["window"] < w0]
-    emit("serving", model=cfg.name, params_init_s=init_s, seconds=seconds,
+    emit(phase, model=cfg.name, params_init_s=init_s, seconds=seconds,
          windows=len(wl), serve_calls=calls, decode_steps=sum(
              r.steps for r in reports), analyses=analyses,
-         flash_launches=flash_launches, nbr_launches=nbr_launches,
+         kernel_launches=launches,
          retunes=[(e.window_id, e.tunables["serve_batch"]) for e in events
                   if e.kind == EventKind.RETUNE.value],
          changes=changes, first_day_replan=w0,
-         p99_day_before_replan=statistics.median(before) if before
-         else None,
-         p99_day_after_replan=statistics.median(
-             w["p99"] for w in wl if w["window"] >= w0),
+         p99_day_before_replan=p99_before, p99_day_after_replan=p99_after,
          night=phase_stats("night"), day=phase_stats("day"),
          final={k: getattr(final, k) for k in ("serve_batch", "cache_len",
-                                               "attn_impl")},
+                                               "ssm_chunk", "attn_impl")},
          per_call={f"B{b}xS{s}": {
              "calls": len(rs),
              "prefill_s_median": statistics.median(r.prefill_s for r in rs),
@@ -629,40 +817,45 @@ def phase_serving(dev):
 
     # every layer of the first prefill of each shape the path ran, and of
     # the last prefill
-    recorded = [r for recs in first.values() for r in recs] + list(last)
-    assert all(len(recs) == cfg.n_layers for recs in first.values())
-    flash = [compare_flash(q, k, v, **kw) for q, k, v, kw in recorded]
     shapes = sorted({(r.batch, r.prompt_len) for r in reports})
-    compared = sorted({tuple(q.shape[:2]) for q, _, _, _ in recorded})
-    assert compared == shapes, (compared, shapes)
-    emit("main_path_parity", of="serving", kernel="flash_attention",
-         inputs=len(flash), shapes=compared, max_abs_err=max(flash))
-    nbr = check_main_path("serving", seen, dev)
-    return eng, {"flash": flash_launches, "nbr": nbr_launches,
-                 "flash_parity": flash, "nbr_parity": nbr}
+    parity = {}
+    for name, n in on_path.items():
+        recorded = [r for recs in first[name].values() for r in recs] + \
+            list(last[name])
+        assert all(len(recs) == n for recs in first[name].values())
+        compared = sorted({tuple(a[0].shape[:2]) for a, _ in recorded})
+        assert compared == shapes, (name, compared, shapes)
+        parity[name] = check_recorded(phase, name, recorded)
+    nbr = check_main_path(phase, seen, dev)
+    return eng, {"launches": launches, "parity": parity, "nbr_parity": nbr}
 
 
-def phase_serving_parity(dev, eng) -> None:
-    """Prefill logits on the pallas route against the xla route."""
-    small = reduced(get_config("qwen2-1.5b"))
+def phase_serving_parity(dev, eng, phase: str, initial: Tunables) -> None:
+    """Prefill logits on the pallas route against the xla route: the
+    reduced config in fp32 (asserted at 1e-4), the full model in bf16
+    (printed), and greedy decodes of one day-phase call on both routes."""
+    tol = 1e-4
+    small = reduced(get_config(eng.cfg.name))
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init(gen, small)
     batch = {"tokens": torch.randint(0, small.vocab, (4, 48), generator=gen,
                                      device=dev, dtype=torch.int32)}
-    lp = M.forward(params, small, batch, Tunables(attn_impl="pallas"))[0]
-    lx = M.forward(params, small, batch, Tunables(attn_impl="xla"))[0]
+    lp = M.forward(params, small, batch, initial)[0]
+    lx = M.forward(params, small, batch, initial.replace(attn_impl="xla"))[0]
     err = float((lp - lx).abs().max())
-    if not torch.allclose(lp, lx, rtol=1e-4, atol=1e-4):
-        raise AssertionError(f"reduced qwen2 pallas vs xla logits: {err}")
+    if not torch.allclose(lp, lx, rtol=tol, atol=tol):
+        raise AssertionError(f"reduced {small.name} pallas vs xla logits: "
+                             f"{err}")
     B, S = MAIN_SHAPE
     tok = eng._token_batch(S, B)
-    fp = M.forward(eng.params, eng.cfg, tok, Tunables(attn_impl="pallas"))[0]
-    fx = M.forward(eng.params, eng.cfg, tok, Tunables(attn_impl="xla"))[0]
-    gp = eng.serve(batch=B, prompt_len=S, gen=16,
-                   tunables=SERVE_INITIAL).generated
+    fp = M.forward(eng.params, eng.cfg, tok, initial)[0]
+    fx = M.forward(eng.params, eng.cfg, tok,
+                   initial.replace(attn_impl="xla"))[0]
+    gp = eng.serve(batch=B, prompt_len=S, gen=16, tunables=initial).generated
     gx = eng.serve(batch=B, prompt_len=S, gen=16,
-                   tunables=SERVE_INITIAL.replace(attn_impl="xla")).generated
-    emit("serving_parity", reduced_fp32_max_abs_err=err, tolerance=1e-4,
+                   tunables=initial.replace(attn_impl="xla")).generated
+    emit(phase, model=eng.cfg.name, reduced_fp32_max_abs_err=err,
+         tolerance=tol,
          full_bf16_max_abs_logit_diff=float((fp.float() - fx.float())
                                             .abs().max()),
          full_bf16_logit_absmax=float(fx.float().abs().max()),
@@ -671,6 +864,74 @@ def phase_serving_parity(dev, eng) -> None:
          full_bf16_greedy_token_agree=float((gp == gx).mean()),
          full_bf16_greedy_first_token_agree=float(
              (gp[:, 0] == gx[:, 0]).mean()))
+
+
+def profile_serve(eng, initial: Tunables, kernel_names: dict) -> dict:
+    """One day-phase serve call (B = 8, prompt 48, 16 new tokens) under
+    the profiler; ``kernel_names``: result key -> substring of a kernel's
+    name, whose per-launch device ms are returned."""
+    B, S = MAIN_SHAPE
+    per_kernel = {}
+    prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=16,
+                                            tunables=initial), per_kernel)
+    dev_ms = {key: [t / n for name, (n, t) in per_kernel.items()
+                    if sub in name] for key, sub in kernel_names.items()}
+    emit("profile", what=f"serve call B={B} prompt={S} gen=16 "
+         f"({eng.cfg.name}, bf16, pallas)", **{f"{k}_ms": v for k, v in
+                                                dev_ms.items()}, **prof)
+    return dev_ms
+
+
+def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
+    """zamba2-7b at full width behind ServeEngine on the pallas route: a
+    few serve calls, every SSD layer (81) and every shared-block hit (13)
+    of each prefill through the kernels, each recorded input held against
+    the plain versions; then one call under the profiler."""
+    cfg = get_config("zamba2-7b")
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, seed=0, initial=HYBRID_TUN, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    per_call = {"flash_attention": cfg.n_layers // cfg.hybrid_period,
+                "ssd_scan": cfg.n_layers}
+    first = {k: {} for k in per_call}
+    last = {k: collections.deque(maxlen=n) for k, n in per_call.items()}
+    with contextlib.ExitStack() as stack:
+        for name, n in per_call.items():
+            stack.enter_context(launch_inputs(name, first[name], last[name],
+                                              n))
+        reset_counters()
+        t0 = time.perf_counter()
+        reports = [eng.serve(batch=B, prompt_len=prompt, gen=gen)
+                   for B in batches]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = counters()
+    for name, n in per_call.items():
+        assert launches[name] == n * len(reports), (name, launches)
+    parity = {}
+    t0 = time.perf_counter()
+    for name, n in per_call.items():
+        recorded = [r for recs in first[name].values() for r in recs]
+        assert len(recorded) == n * len(reports), (name, len(recorded))
+        parity[name] = check_recorded("hybrid", name, recorded)
+    emit("hybrid", model=cfg.name, params_init_s=init_s, serve_s=serve_s,
+         parity_s=time.perf_counter() - t0,
+         kernel_launches=launches, per_prefill=per_call,
+         calls=[{"batch": r.batch, "prompt": r.prompt_len, "gen": r.steps,
+                 "prefill_s": r.prefill_s,
+                 "decode_s_per_step": r.decode_s / max(r.steps, 1),
+                 "finite": bool(np.isfinite(r.generated).all())}
+                for r in reports])
+    dev_ms = profile_serve(eng, HYBRID_TUN, {"flash": "flash_fwd_kernel",
+                                             "ssd": "ssd_fwd_kernel"})
+    return {"launches": launches, "parity": parity, "device_ms": dev_ms}
+
+
+def release_memory() -> None:
+    """Return the memory of engines the caller has dropped."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -686,38 +947,20 @@ def main() -> int:
          nvidia_smi=smi)
 
     phase_build()
-    timed = {}
+    timed, timed_ssd = {}, {}
     for name, fn in (("kernel_nbr", lambda: phase_kernel(dev)),
                      ("kernel_flash", lambda: timed.update(
-                         phase_kernel_flash(dev)))):
+                         phase_kernel_flash(dev))),
+                     ("kernel_ssd", lambda: timed_ssd.update(
+                         phase_kernel_ssd(dev)))):
         t0 = time.perf_counter()
         fn()
         emit("phase_seconds", of=name, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     quick_launches, quick = phase_quickstart(dev)
     full_launches, full, x_last = phase_full_history(dev)
-    emit("phase_seconds", of="quickstart+full_history",
-         seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    eng, served = phase_serving(dev)
-    emit("phase_seconds", of="serving", seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    phase_serving_parity(dev, eng)
-    B, S = MAIN_SHAPE
-    per_kernel = {}
-    prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=16,
-                                            tunables=SERVE_INITIAL),
-                          per_kernel)
-    flash_dev = [t / n for name, (n, t) in per_kernel.items()
-                 if "flash_fwd_kernel" in name]
-    emit("profile", what=f"serve call B={B} prompt={S} gen=16 (qwen2-1.5b, "
-         "bf16, pallas)", flash_kernel_ms=flash_dev, **prof)
-    emit("phase_seconds", of="serving_parity+profile",
-         seconds=time.perf_counter() - t0)
-
-    main = quick + full + served["nbr_parity"]
-    # timed at the main path's largest input: the last analysis, over the
-    # full ring
+    # the ε-neighbour kernel timed at the main path's largest input: the
+    # last analysis, over the full ring
     x_main = torch.from_numpy(x_last).to(dev)
     main_shape = time_kernel(x_main, 0.35)
     eps_sq = P._eps_sq(0.35)
@@ -726,14 +969,62 @@ def main() -> int:
     kern = [t / n for name, n, t in prof["top"] if "nbr_adjacency" in name]
     device_ms = kern[0] if kern else None        # per launch the profiler saw
     emit("profile", what="nbr_adjacency x20", **prof)
+    emit("phase_seconds", of="quickstart+full_history",
+         seconds=time.perf_counter() - t0)
+
+    qwen2 = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    eng, served = phase_serving(dev, "serving", qwen2, SERVE_INITIAL,
+                                SERVE_SPACE,
+                                {"flash_attention": qwen2.n_layers})
+    emit("phase_seconds", of="serving", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_serving_parity(dev, eng, "serving_parity", SERVE_INITIAL)
+    flash_dev = profile_serve(eng, SERVE_INITIAL,
+                              {"flash": "flash_fwd_kernel"})["flash"]
+    emit("phase_seconds", of="serving_parity+profile",
+         seconds=time.perf_counter() - t0)
+    del eng
+    release_memory()
+
+    mamba2 = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    eng, served_ssm = phase_serving(dev, "serving_ssm", mamba2, SSM_INITIAL,
+                                    SSM_SPACE, {"ssd_scan": mamba2.n_layers})
+    emit("phase_seconds", of="serving_ssm", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_serving_parity(dev, eng, "serving_ssm_parity", SSM_INITIAL)
+    ssd_dev = profile_serve(eng, SSM_INITIAL, {"ssd": "ssd_fwd_kernel"})["ssd"]
+    emit("phase_seconds", of="serving_ssm_parity+profile",
+         seconds=time.perf_counter() - t0)
+    del eng
+    release_memory()
+
+    t0 = time.perf_counter()
+    hybrid = phase_hybrid(dev)
+    emit("phase_seconds", of="hybrid", seconds=time.perf_counter() - t0)
+
+    main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"]
+    B, S = MAIN_SHAPE
     fl = timed[MAIN_SHAPE]
+    sd = timed_ssd[("mamba2-1.3b", B, S)]
+    nbr_by_phase = {"quickstart": quick_launches,
+                    "full_history": full_launches,
+                    "serving": served["launches"]["nbr_adjacency"],
+                    "serving_ssm": served_ssm["launches"]["nbr_adjacency"]}
+    flash_by_phase = {"serving": served["launches"]["flash_attention"],
+                      "hybrid": hybrid["launches"]["flash_attention"]}
+    flash_parity = served["parity"]["flash_attention"] + \
+        hybrid["parity"]["flash_attention"]
+    ssd_by_phase = {"serving_ssm": served_ssm["launches"]["ssd_scan"],
+                    "hybrid": hybrid["launches"]["ssd_scan"]}
+    ssd_parity = served_ssm["parity"]["ssd_scan"] + \
+        hybrid["parity"]["ssd_scan"]
     print(json.dumps({"kernels": [{
         "name": "nbr_adjacency", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
-        "launches": quick_launches + full_launches + served["nbr"],
-        "launches_by_phase": {"quickstart": quick_launches,
-                              "full_history": full_launches,
-                              "serving": served["nbr"]},
+        "launches": sum(nbr_by_phase.values()),
+        "launches_by_phase": nbr_by_phase,
         "max_abs_err": max(r["max_abs_err"] for r in main),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -748,9 +1039,9 @@ def main() -> int:
                      "the float64 squared distance is within 1e-6·ε² of ε²; "
                      "labels equal"}, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
-        "replaces": FLASH_REPLACES, "launches": served["flash"],
-        "launches_by_phase": {"serving": served["flash"]},
-        "max_abs_err": max(served["flash_parity"]),
+        "replaces": FLASH_REPLACES, "launches": sum(flash_by_phase.values()),
+        "launches_by_phase": flash_by_phase,
+        "max_abs_err": max(flash_parity),
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
         "bound_fp32_ms": fl["bound_fp32_ms"],
@@ -758,9 +1049,25 @@ def main() -> int:
         "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
         "shape": {"B": B, "S": S, **QWEN2, "dtype": "bf16"},
         "device_ms": flash_dev[0] if flash_dev else None,
-        "parity": {"main_path_inputs": len(served["flash_parity"])},
+        "device_ms_zamba2": (hybrid["device_ms"]["flash"] or [None])[0],
+        "parity": {"main_path_inputs": len(flash_parity)},
         "tolerance": "|kernel - plain| <= 1e-3 + 2^-7·|plain| in bf16 (one "
-                     "bf16 step), 2e-5 + 2e-5·|plain| in fp32"}]}),
+                     "bf16 step), 2e-5 + 2e-5·|plain| in fp32"}, {
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SRC,
+        "replaces": SSD_REPLACES, "launches": sum(ssd_by_phase.values()),
+        "launches_by_phase": ssd_by_phase,
+        "max_abs_err": max(ssd_parity),
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None, "library": "none: no single PyTorch call "
+        "computes the SSD scan",
+        "shape": {"B": B, "S": S, "chunk": SSD_CHUNK, **MAMBA2,
+                  "dtype": "bf16"},
+        "device_ms": ssd_dev[0] if ssd_dev else None,
+        "device_ms_zamba2": (hybrid["device_ms"]["ssd"] or [None])[0],
+        "parity": {"main_path_inputs": len(ssd_parity)},
+        "tolerance": "|kernel - plain| <= 1e-4 + 1e-4·|plain| for y and the "
+                     "state (fp32 outputs, bf16 or fp32 inputs)"}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

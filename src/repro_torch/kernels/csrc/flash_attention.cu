@@ -41,8 +41,10 @@
 //     every tile is fully masked, so p = exp(-1e30 + 1e30) = 1 at each of
 //     the kv_pad positions of its padded KV (Skv rounded up to the
 //     reference's KV tile), and out = (v summed over the Skv rows) / kv_pad.
-// Shared memory is 2 * 32 * d * 4 bytes: 32 KB at d = 128, 56 KB at d = 224,
-// which takes the dynamic-shared-memory attribute.  wgmma, TMA and
+// Head widths 32, 64, 112 (zamba2-7b: 7 float4 chunks per thread), 128
+// and 224.  Shared memory is 2 * 32 * d * 4 bytes: 28 KB at d = 112, 32 KB
+// at d = 128, 56 KB at d = 224, which takes the dynamic-shared-memory
+// attribute.  wgmma, TMA and
 // bf16 tensor-core tiles are later work.
 
 #include <cuda_bf16.h>
@@ -237,6 +239,7 @@ cudaError_t dispatch(int d, const Params& p, int B, int H, cudaStream_t s) {
   switch (d) {
     case 32: return launch<32, T>(p, B, H, s);
     case 64: return launch<64, T>(p, B, H, s);
+    case 112: return launch<112, T>(p, B, H, s);
     case 128: return launch<128, T>(p, B, H, s);
     case 224: return launch<224, T>(p, B, H, s);
     default: return cudaErrorInvalidValue;

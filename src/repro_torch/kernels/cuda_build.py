@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # per-kernel flags on top of NVCC_FLAGS: nbr_adjacency's thresholds must
 # be bit-exact, so nvcc may not contract its products and sums into FMAs;
-# flash_attention is held to a tolerance and keeps nvcc's contraction
+# flash_attention and ssd_scan are held to a tolerance and keep nvcc's
+# contraction
 KERNEL_FLAGS = {"nbr_adjacency": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

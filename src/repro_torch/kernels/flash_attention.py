@@ -37,7 +37,7 @@ NEG = -1e30
 # else touches it except callers resetting it to 0
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128, 224)   # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 112, 128, 224)   # head widths the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # flash_attention_fwd(q, k, v, out, dtype, d, B, Sq, Skv, H, K, kv_len,
 # kv_pad, 12 strides, causal, window, softcap, scale, stream)

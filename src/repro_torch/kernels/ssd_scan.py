@@ -1,0 +1,184 @@
+"""Mamba2 SSD chunked scan (state-space duality), forward.
+
+Counterpart of ``repro/kernels/ssd_scan.py``.  Every prefill of the ``ssm``
+and ``hybrid`` families on the ``attn_impl="pallas"`` route runs it once
+per SSD layer:
+
+* on a CUDA tensor ``ssd`` launches the hand-written kernel
+  ``csrc/ssd_scan.cu`` (which replaces the TPU kernel ``_kernel``) on the
+  current stream;
+* on a CPU tensor it takes ``_ssd_fwd_plain``, the TPU kernel's chunk loop
+  in plain PyTorch: fp32 throughout, per chunk of Q rows the cumsum of
+  dt·A, the masked intra-chunk product, the read of the carried state and
+  the state update.
+
+Inputs: x (B, S, H, P) bf16 or fp32, dt (B, S, H) fp32, A (H,) fp32,
+Bm/Cm (B, S, G, N) in x's dtype; head h reads group h // (H / G).
+Returns y (B, S, H, P) fp32 and the final state (B, H, N, P) fp32.  The
+oracle is ``models/mamba2.ssd_chunked``.  There is no backward here:
+serving needs none, and the ``torch.autograd.Function`` comes with the
+training slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import cuda_build, dispatch
+
+NEG = -1e30
+
+# launches of the CUDA kernel; the wrapper adds one per launch and nothing
+# else touches it except callers resetting it to 0
+LAUNCHES = 0
+
+HEAD_DIMS = (8, 16, 32, 64, 128)   # P the kernel is instantiated for
+MAX_STATE = 128                    # largest d_state N it takes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 227 * 1024
+# ssd_scan_fwd(x, dt, A, Bm, Cm, y, state, dtype, B, S, H, P, G, N, Q,
+#              strides of x (b, s, h), dt (b, s), Bm (b, s, g), Cm (b, s, g),
+#              stream)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+             + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
+
+
+def repeat_groups(t, r: int, axis: int):
+    """Group axis ``axis`` of ``t`` repeated ``r`` times per group, so
+    head h reads group h // r (``jnp.repeat`` in the reference)."""
+    return t if r == 1 else t.repeat_interleave(r, dim=axis)
+
+
+def _ssd_fwd_plain(x, dt, A, Bm, Cm, *, chunk: int):
+    """The TPU kernel's chunk loop: all batches advance together, the
+    (B, H, N, P) fp32 state is carried from chunk to chunk.  ``chunk``
+    must divide S."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    r = H // G
+    Q = min(chunk, S)
+    assert S % Q == 0, (S, Q)
+    f32 = torch.float32
+    A = A.to(f32)
+    tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((Bsz, H, N, P), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        xc = x[:, c0:c0 + Q].to(f32)                     # (B, Q, H, P)
+        dtc = dt[:, c0:c0 + Q].to(f32)                   # (B, Q, H)
+        Bc = Bm[:, c0:c0 + Q].to(f32)                    # (B, Q, G, N)
+        Cc = Cm[:, c0:c0 + Q].to(f32)
+        cum = torch.cumsum(dtc * A, dim=1)               # (B, Q, H)
+        cum_h = cum.transpose(1, 2)                      # (B, H, Q)
+
+        # intra-chunk: scores[h,i,j] = (C_i·B_j) exp(cum_i - cum_j) dt_j,
+        # masked to j <= i before the exp
+        CB = repeat_groups(torch.einsum("bigN,bjgN->bgij", Cc, Bc), r, 1)
+        diff = cum_h[..., :, None] - cum_h[..., None, :]
+        Lm = torch.exp(torch.where(tril, diff, NEG))
+        scores = CB * Lm * dtc.transpose(1, 2)[..., None, :]
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores, xc)
+
+        # inter-chunk: read the carried state
+        Ch = repeat_groups(Cc, r, 2)                     # (B, Q, H, N)
+        y_inter = torch.einsum("bih,bihn,bhnp->bihp", torch.exp(cum), Ch,
+                               state)
+        ys.append(y_intra + y_inter)
+
+        # state update
+        Bh = repeat_groups(Bc, r, 2)
+        dec_end = torch.exp(cum[:, -1:] - cum)           # (B, Q, H)
+        S_c = torch.einsum("bjh,bjhn,bjhp->bhnp", dec_end * dtc, Bh, xc)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + S_c
+    return torch.cat(ys, dim=1), state
+
+
+def smem_bytes(Q: int, N: int, P: int) -> int:
+    """Dynamic shared memory of one block (csrc/ssd_scan.cu): the state,
+    one row tile each of C, B and x, the score tile, cum and dt."""
+    rows = 32
+    return 4 * (N * P + 2 * rows * (N + 1) + rows * P + rows * (rows + 1)
+                + 2 * Q)
+
+
+def _check_cuda_inputs(x, dt, A, Bm, Cm, Q: int):
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                             f"{name} on {t.device}")
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4 \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"expected x (B,S,H,P), dt (B,S,H), A (H,), "
+                         f"Bm/Cm (B,S,G,N); got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dt.shape != (Bsz, S, H) or A.shape != (H,) or Bm.shape[:2] != (Bsz, S):
+        raise ValueError(f"shapes do not match: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"x, Bm, Cm must share float32 or bfloat16, got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt and A must be float32, got {dt.dtype}, "
+                        f"{A.dtype}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim P in {HEAD_DIMS}, "
+                         f"got {P}")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"the CUDA kernel takes 1 <= d_state N <= "
+                         f"{MAX_STATE}, got {N}")
+    if G == 0 or H % G:
+        raise ValueError(f"heads ({H}) must be a multiple of groups ({G})")
+    if smem_bytes(Q, N, P) > _SMEM_LIMIT:
+        raise ValueError(f"chunk {Q} with N = {N}, P = {P} needs "
+                         f"{smem_bytes(Q, N, P)} bytes of shared memory, "
+                         f"more than a block has")
+
+
+def _ssd_fwd_cuda(x, dt, A, Bm, Cm, *, chunk: int):
+    """Launch ``csrc/ssd_scan.cu`` on the current stream.  Reads x, dt, Bm
+    and Cm through their strides (the last axis must be contiguous, else
+    that tensor is copied); writes new y and state tensors."""
+    global LAUNCHES
+    Bsz, S, H, P = x.shape
+    Q = min(chunk, S)
+    _check_cuda_inputs(x, dt, A, Bm, Cm, Q)
+    if Q <= 0 or S % Q:
+        raise ValueError(f"chunk {Q} must divide the sequence length {S}")
+    x, dt, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (x, dt, Bm, Cm))
+    A = A.contiguous()
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
+    state = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state.zero_()
+    fn = cuda_build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    strides = [*x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3],
+               *Cm.stride()[:3]]
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 _DTYPES[x.dtype], Bsz, S, H, P, G, N, Q, *strides,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return y, state
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """Public entry, with the reference's signature: the chunk is capped at
+    S and halved until it divides S (``ssd_scan.py:139-145``), then the
+    kernel runs on a CUDA tensor and the plain version on a CPU tensor.
+    Returns (y (B, S, H, P) fp32, final state (B, H, N, P) fp32)."""
+    Q = min(chunk, x.shape[1])
+    while x.shape[1] % Q:
+        Q //= 2
+    if dispatch.resolve("auto", x.device) == "cuda":
+        return _ssd_fwd_cuda(x, dt, A, Bm, Cm, chunk=Q)
+    return _ssd_fwd_plain(x, dt, A, Bm, Cm, chunk=Q)

@@ -40,7 +40,9 @@ def dense_init(gen, d_in: int, d_out, dtype, scale: float | None = None,
     if scale is None:
         scale = d_in ** -0.5
     shape = (d_in, d_out) if isinstance(d_out, int) else (d_in, *d_out)
-    return (_normal(gen, (*lead, *shape)) * scale).to(dtype)
+    # scaled in place: a stacked fp32 draw (zamba2-7b's in_proj is 16 GB)
+    # is not held twice
+    return _normal(gen, (*lead, *shape)).mul_(scale).to(dtype)
 
 
 def embed_init(gen, vocab: int, d: int, dtype):

@@ -1,10 +1,11 @@
 """Unified model interface dispatched on ``cfg.family``.
 
 Port of ``repro/models/model.py``, for the families the port runs so far:
-``dense`` (``models/transformer.py``).  ``moe`` and ``vlm`` go to the
+``dense`` (``models/transformer.py``), ``ssm`` (Mamba2) and ``hybrid``
+(Zamba2) (``models/ssm_lm.py``).  ``moe`` and ``vlm`` go to the
 transformer, which raises for their MoE layers and patch prefix;
-``encdec``, ``ssm`` and ``hybrid`` raise here.  The loss and training
-entry points come with the training slice.
+``encdec`` raises here.  The loss and training entry points come with the
+training slice.
 
 Functions:
   init(gen, cfg)                         -> params (drawn from ``gen``)
@@ -21,16 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 
 _LATER = {
     "encdec": "the encdec family is not ported yet (ROADMAP queue A, item "
-              "14: models/encdec.py)",
-    "ssm": "the ssm family is not ported yet (ROADMAP queue A, item 14a: "
-           "models/ssm_lm.py, models/mamba2.py and the ssd_scan kernel)",
-    "hybrid": "the hybrid family is not ported yet (ROADMAP queue A, item "
-              "14a: models/ssm_lm.py, models/mamba2.py and the ssd_scan "
-              "kernel)",
+              "14b: models/encdec.py)",
 }
 
 
@@ -41,13 +38,16 @@ def _check(cfg: ModelConfig) -> None:
 
 def init(gen: torch.Generator, cfg: ModelConfig):
     _check(cfg)
-    return T.init(gen, cfg)
+    fn = {"ssm": S.init_mamba, "hybrid": S.init_zamba}.get(cfg.family, T.init)
+    return fn(gen, cfg)
 
 
 def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
     _check(cfg)
-    return T.forward(params, cfg, batch, tun, return_cache=return_cache,
-                     cache=cache)
+    fn = {"ssm": S.forward_mamba, "hybrid": S.forward_zamba}.get(
+        cfg.family, T.forward)
+    return fn(params, cfg, batch, tun, return_cache=return_cache,
+              cache=cache)
 
 
 def prefill(params, cfg, batch, tun, cache=None):
@@ -60,12 +60,19 @@ def prefill(params, cfg, batch, tun, cache=None):
 
 def decode(params, cfg, batch, cache, tun):
     _check(cfg)
-    return T.decode_step(params, cfg, batch, cache, tun)
+    fn = {"ssm": S.decode_mamba, "hybrid": S.decode_zamba}.get(
+        cfg.family, T.decode_step)
+    return fn(params, cfg, batch, cache, tun)
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
+    """Zeroed cache for ``batch`` sequences of capacity ``seq``.
+    ``dtype`` (None: the model dtype) applies to the attention keys and
+    values only; SSM states stay fp32 and conv rows in the model dtype."""
     _check(cfg)
-    return T.init_cache(cfg, batch, seq, dtype=dtype, device=device)
+    fn = {"ssm": S.cache_mamba, "hybrid": S.cache_zamba}.get(
+        cfg.family, T.init_cache)
+    return fn(cfg, batch, seq, dtype=dtype, device=device)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:

@@ -130,4 +130,4 @@ def test_cuda_route_refuses_cpu_tensors_and_unsupported_shapes():
     q = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         FA._flash_fwd_cuda(q, q, q)
-    assert FA.HEAD_DIMS == (32, 64, 128, 224)
+    assert FA.HEAD_DIMS == (32, 64, 112, 128, 224)

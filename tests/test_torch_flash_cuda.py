@@ -27,6 +27,8 @@ CASES = [
     (2, 40, 100, 4, 2, 32, False, 0, 0.0),
     (8, 48, 48, 12, 2, 128, True, 0, 0.0),       # the serving main path
     (1, 300, 300, 16, 8, 224, True, 64, 50.0),   # gemma2-9b's head width
+    (8, 48, 48, 32, 32, 112, True, 0, 0.0),      # zamba2-7b's shared block
+    (1, 200, 200, 4, 2, 112, True, 0, 0.0),
     (1, 200, 96, 4, 2, 32, True, 16, 0.0),       # rows 111.. see no key
     (1, 300, 200, 4, 2, 64, True, 16, 0.0),      # the same, KV padded
 ]

@@ -39,6 +39,10 @@ eng = ServeEngine(tiny_config("qwen2-1.5b"), device="cpu")
 rep = eng.serve(batch=2, prompt_len=16, gen=3,
                 tunables=Tunables(attn_impl="pallas"))
 assert rep.generated.shape == (2, 4), rep.generated.shape
+eng = ServeEngine(tiny_config("mamba2-1.3b"), device="cpu")
+rep = eng.serve(batch=2, prompt_len=16, gen=3,
+                tunables=Tunables(attn_impl="pallas", ssm_chunk=8))
+assert rep.generated.shape == (2, 4), rep.generated.shape
 print(" ".join(names))
 print(len(names))
 """
@@ -53,6 +57,12 @@ SERVING_SLICE = [
     "repro_torch.kermit.serving.engine", "repro_torch.kermit.serving.executor",
     "repro_torch.launch.serve",
 ]
+# modules of the SSM slice
+SSM_SLICE = [
+    "repro_torch.configs.mamba2_1_3b", "repro_torch.configs.zamba2_7b",
+    "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+    "repro_torch.models.ssm_lm",
+]
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -63,6 +73,7 @@ def test_every_module_imports_without_jax_or_reference():
     *walked, count = proc.stdout.split()
     assert int(count) == len(walked) >= 40          # every module was walked
     assert set(SERVING_SLICE) <= set(walked)
+    assert set(SSM_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(

@@ -55,12 +55,12 @@ def fixed_timings(engine, report_cls):
     return engine
 
 
-def _engines(initial, seed=0):
-    """Reference and port engines over the same tiny qwen2 weights; the
-    port's prompt tokens are the reference's."""
-    jeng = JS.ServeEngine(JS.tiny_config("qwen2-1.5b"), seed=seed,
+def _engines(initial, seed=0, arch="qwen2-1.5b"):
+    """Reference and port engines over the same tiny weights of ``arch``;
+    the port's prompt tokens are the reference's."""
+    jeng = JS.ServeEngine(JS.tiny_config(arch), seed=seed,
                           initial=JTunables(**initial))
-    peng = PS.ServeEngine(PS.tiny_config("qwen2-1.5b"), seed=seed,
+    peng = PS.ServeEngine(PS.tiny_config(arch), seed=seed,
                           initial=Tunables(**initial), device="cpu")
     peng.params = model_params_from_jax(
         jax.tree_util.tree_map(np.asarray, jeng.params), device="cpu")
@@ -145,6 +145,58 @@ def test_engine_greedy_decode_matches_reference(tun):
     assert peng.stats["serve_calls"] == before["serve_calls"] + 1
 
 
+@pytest.mark.parametrize("tun", [
+    dict(cache_len=32, attn_impl="pallas", ssm_chunk=8),
+    dict(cache_len=0, cache_dtype="bfloat16"),
+])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_ssm_engine_greedy_decode_matches_reference(arch, tun):
+    """The SSM families through both engines: a 16-token prompt over
+    chunks of 8 on the pallas route (the reference's kernel in interpret
+    mode), and a bf16 KV cache, which only zamba2's attention has."""
+    jeng, peng = _engines(INITIAL, arch=arch)
+    gen = np.array([5, 2, 4, 5])
+    want = jeng.serve(batch=4, prompt_len=16, gen=gen,
+                      tunables=JTunables(**tun))
+    got = peng.serve(batch=4, prompt_len=16, gen=gen,
+                     tunables=Tunables(**tun))
+    assert got.capacity == want.capacity == (32 if tun["cache_len"] else 21)
+    assert got.steps == want.steps == 5
+    assert np.array_equal(got.generated, np.asarray(want.generated))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_cache_dtype_leaves_the_ssm_states_alone(arch, monkeypatch):
+    """``cache_dtype`` casts only attention keys and values, as the
+    reference's cache growth does (names k/v/k0/v0): SSM states stay
+    fp32, conv rows in the model dtype; prefill fills them in place."""
+    from repro_torch.models import model as M
+    _, peng = _engines(INITIAL, arch=arch)
+    seen = []
+    real = M.init_cache
+
+    def spy(cfg, batch, seq, dtype=None, device=None):
+        cache = real(cfg, batch, seq, dtype=dtype, device=device)
+        seen.append(cache)
+        return cache
+    monkeypatch.setattr(M, "init_cache", spy)
+    peng.serve(batch=2, prompt_len=16, gen=3,
+               tunables=Tunables(cache_len=32, cache_dtype="bfloat16"))
+    (cache,) = seen
+    states = [cache] if arch.startswith("mamba") else [cache["g_ssm"],
+                                                       cache["r_ssm"]]
+    for st in states:
+        assert st["ssm"].dtype == torch.float32 and st["ssm"].abs().sum() > 0
+        assert st["conv"].dtype == torch.float32 and st["conv"].abs().sum() > 0
+    if arch.startswith("zamba"):
+        assert cache["k"].dtype == cache["v"].dtype == torch.bfloat16
+        assert cache["k"].shape[2] == 32                 # capacity
+        assert cache["k"][:, :, :19].abs().sum(dim=(0, 1, 3, 4)).all()
+        assert not cache["k"][:, :, 19:].any()
+    else:
+        assert set(cache) == {"ssm", "conv"}
+
+
 def test_engine_cache_is_allocated_at_capacity_in_cache_dtype(monkeypatch):
     from repro_torch.models import model as M
     _, peng = _engines(INITIAL)
@@ -179,8 +231,9 @@ def test_get_engine_is_lru_bounded_and_cuda_by_default():
 # -- the executor under one clock ---------------------------------------------
 
 
-def _executors(traffic_kw, initial=INITIAL, config_kw=None):
-    jeng, peng = _engines(initial)
+def _executors(traffic_kw, initial=INITIAL, config_kw=None,
+               arch="qwen2-1.5b"):
+    jeng, peng = _engines(initial, arch=arch)
     fixed_timings(jeng, JS.engine.ServeReport)
     fixed_timings(peng, PS.engine.ServeReport)
     make = traffic_kw.pop("make")
@@ -237,13 +290,24 @@ def test_serve_config_round_trip_and_from_config():
 # -- the closed loop: night -> day re-plan ---------------------------------------
 
 
-def _loop_config(pkg, initial):
+def _loop_config(pkg, initial, space):
     Kc, Mc, Ac, Nc, Pc = pkg
     return Kc(monitor=Mc(window_size=8),
               analysis=Ac(interval=6, min_windows=6),
               knowledge=Nc(drift_eps=0.45),
-              plan=Pc(space={"serve_batch": [2, 4, 8], "cache_len": [64]},
-                      default_tunables=initial))
+              plan=Pc(space=space, default_tunables=initial))
+
+
+# per served model: the initial Tunables and the Plan space of the loop
+# (qwen2: tests/test_serving_autonomic.py; mamba2: the SSM serving path,
+# chunks of 16 so every 48-token day prefill carries state across 3)
+LOOPS = {
+    "qwen2-1.5b": (dict(serve_batch=8, cache_len=64),
+                   {"serve_batch": [2, 4, 8], "cache_len": [64]}),
+    "mamba2-1.3b": (dict(serve_batch=8, cache_len=64, ssm_chunk=16,
+                         attn_impl="pallas"),
+                    {"serve_batch": [2, 4, 8], "ssm_chunk": [16]}),
+}
 
 
 def _run_loop(session_cls, config, ex, **kw):
@@ -256,23 +320,26 @@ def _run_loop(session_cls, config, ex, **kw):
                    for e in events]
 
 
-def test_autonomic_replan_matches_reference(reference_draws):
+@pytest.mark.parametrize("arch", sorted(LOOPS))
+def test_autonomic_replan_matches_reference(reference_draws, arch):
     """tests/test_serving_autonomic.py's night -> day gate, through both
     packages under one clock: the port re-plans where the reference does,
     with the same events, RETUNE stream and final Tunables."""
-    initial = dict(serve_batch=8, cache_len=64)
+    initial, space = LOOPS[arch]
     jx, px = _executors(dict(make=lambda G, **kw: G.diurnal(**kw),
                              window_size=8, seed=0, night_windows=12,
                              day_windows=12),
-                        initial=initial, config_kw=dict(probe_repeats=3))
+                        initial=initial, config_kw=dict(probe_repeats=3),
+                        arch=arch)
     jfinal, jevents = _run_loop(
         JKermitSession, _loop_config((JKermitConfig, JMonitorConfig,
                                       JAnalysisConfig, JKnowledgeConfig,
-                                      JPlanConfig), initial), jx)
+                                      JPlanConfig), initial, space), jx)
     final, events = _run_loop(
         KermitSession, _loop_config((KermitConfig, MonitorConfig,
                                      AnalysisConfig, KnowledgeConfig,
-                                     PlanConfig), initial), px, device="cpu")
+                                     PlanConfig), initial, space), px,
+        device="cpu")
     assert final.as_dict() == jfinal.as_dict()
     assert events == jevents
     assert px.window_log == jx.window_log
