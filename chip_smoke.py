@@ -23,40 +23,59 @@ printing JSON lines and any failure raising (exit code != 0):
                        mamba2-1.3b's serving shapes, S = 2048 and 8192 in
                        chunks of 256, a zamba2-7b shape; times beside the
                        bound.
-5. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
+5. ``kernel_pairdist`` — the dense pairwise-distance kernel against its
+                       plain version: the reference's sweep and window
+                       means at N = 20 ... 16384, every entry within
+                       1e-5·(|x_i|² + |x_j|²) + 1e-6; its ε-threshold
+                       equal to the ε-neighbour kernel's bits (N <= 4096);
+                       times beside ``torch.cdist`` and the bound.
+6. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
                        through ``repro_torch`` on the card, with its asserts.
-6. ``full_history``  — the default config (analysis every 512 windows) over
+7. ``full_history``  — the default config (analysis every 512 windows) over
                        4096 windows of 32 samples cycling the 7 simulator
                        archetypes: DBSCAN over the full 4096-window ring.
-7. ``serving``       — KERMIT tuning a live qwen2-1.5b server at full width
+8. ``quickstart_legacy`` — the quickstart on the seed path
+                       (``impl="legacy"``): the dense kernel once per
+                       analysis, the ε-neighbour kernel never; the
+                       quickstart's asserts and its RETUNE stream.
+9. ``legacy_history`` — the first 2048 windows of ``full_history``'s
+                       stream on the seed path (retention 4096, analysis
+                       every 512 windows): the last analysis's DBSCAN
+                       over the full ring, profiled.
+10. ``serving``      — KERMIT tuning a live qwen2-1.5b server at full width
                        (bf16, random weights from seed 0) with
                        ``attn_impl="pallas"``: diurnal night -> day traffic
                        through ``KermitSession`` + ``ServeExecutor``, with
                        the asserts of ``tests/test_serving_autonomic.py``.
-8. ``serving_parity``— prefill logits on the pallas route against the xla
+11. ``serving_parity``— prefill logits on the pallas route against the xla
                        route: reduced qwen2 in fp32 (asserted at 1e-4), and
                        the full model in bf16 (printed); a profiled call.
-9. ``serving_ssm``, ``serving_ssm_parity`` — the same loop, checks and
+12. ``serving_ssm``, ``serving_ssm_parity`` — the same loop, checks and
                        profile on mamba2-1.3b (chunks of 16).
-10. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
+13. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
                        few serve calls through both kernels, and a profiled
                        call.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
-once per analysis, the attention kernel once per attention layer of every
+once per analysis of the fast paths, the dense kernel once per analysis
+of the seed paths (and the ε-neighbour kernel never there, the dense
+kernel never on the fast paths), the attention kernel once per attention layer of every
 prefill (28 × serve calls for qwen2, 13 per zamba2 prefill), the SSD
 kernel once per SSD layer of every prefill (48 × serve calls for mamba2,
 81 per zamba2 prefill).  The inputs the main path gave each kernel are
 then run through the kernel and its plain version again and held to the
 same parity.  Then one ``{"kernels": [...]}`` line, the card's name and
 power limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
-line.  Imports nothing of JAX or of the JAX package.
+line.  On the seed paths every recorded DBSCAN input is also held to the
+fast path: its legacy labels equal ``dbscan(impl="auto")``'s on the card.
+Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -76,7 +95,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.base import Tunables, reduced  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import analyser as A  # noqa: E402
-from repro_torch.core.dbscan import labels_from_adjacency  # noqa: E402
+from repro_torch.core.dbscan import (dbscan,  # noqa: E402
+                                     labels_from_adjacency)
 from repro_torch.core.simulator import (ARCHETYPES,  # noqa: E402
                                         archetype_stats)
 from repro_torch.kernels import cuda_build  # noqa: E402
@@ -96,6 +116,12 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:30"
+DENSE_SRC = "src/repro_torch/kernels/csrc/pairdist.cu"
+DENSE_REPLACES = "src/repro/kernels/pairdist.py:55"
+# |kernel − plain| <= DENSE_RTOL·(|x_i|² + |x_j|²) + DENSE_ATOL: the two sum
+# in different orders, and fp32 cancellation scales with the norms
+DENSE_RTOL = 1e-5
+DENSE_ATOL = 1e-6
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, dense bf16 in them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -209,9 +235,10 @@ def time_kernel(x, eps: float, block: int = 128) -> dict:
 
 
 def phase_build() -> None:
-    """Build the three kernels, one nvcc each, started together."""
+    """Build the four kernels, one nvcc each, started together."""
     t0 = time.perf_counter()
-    cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan")
+    cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan",
+                     "pairdist")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in cuda_build.BUILD_LOGS.items()}
@@ -286,18 +313,20 @@ def phase_quickstart(dev):
     with dbscan_inputs(seen), KermitSession(
             QUICKSTART_CONFIG, executor=executor, device=dev) as session:
         session.subscribe(EventKind.RETUNE, retunes.append)
-        P.LAUNCHES = 0
+        P.LAUNCHES = P.DENSE_LAUNCHES = 0
         t0 = time.perf_counter()
         tunables = session.run()
         seconds = time.perf_counter() - t0
-        launches = P.LAUNCHES
+        launches, dense = P.LAUNCHES, P.DENSE_LAUNCHES
         summary = session.summary()
         analyses = sum(e.kind == "analysis" for e in session.events)
+        events = event_stream(session.events)
     assert summary["known_workloads"] >= 2, summary
     assert retunes, "the plan phase should have retuned at least once"
     assert (tunables.microbatches, tunables.remat) == (2, "none"), tunables
     if dev.type == "cuda":
         assert launches == analyses == len(seen) > 0, (launches, analyses)
+        assert dense == 0, dense
     emit("quickstart", seconds=seconds, windows=summary["windows"],
          known_workloads=summary["known_workloads"],
          anticipated_hybrids=summary["anticipated_hybrids"],
@@ -305,7 +334,17 @@ def phase_quickstart(dev):
          retunes=[(e.window_id, e.tunables["microbatches"],
                    e.tunables["remat"]) for e in retunes],
          plugin=summary["plugin"])
-    return launches, check_main_path("quickstart", seen, dev)
+    return launches, check_main_path("quickstart", seen, dev), events
+
+
+def event_stream(events) -> list:
+    """(window, kind, label, tunables as (microbatches, remat) or None,
+    detail without wall seconds) for every event."""
+    return [(e.window_id, str(e.kind), e.label,
+             None if e.tunables is None else (e.tunables["microbatches"],
+                                              e.tunables["remat"]),
+             {k: v for k, v in e.detail.items() if k != "seconds"})
+            for e in events]
 
 
 def device_profile(fn, per_kernel: dict | None = None) -> dict:
@@ -353,13 +392,13 @@ def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
     seen, reports = [], []
     with dbscan_inputs(seen), capture(session.analyser, "run", reports,
                                       lambda a, out: out):
-        P.LAUNCHES = 0
+        P.LAUNCHES = P.DENSE_LAUNCHES = 0
         t0 = time.perf_counter()
         tunables = session.run(samples)
         if cuda:
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = P.LAUNCHES
+        launches, dense = P.LAUNCHES, P.DENSE_LAUNCHES
     summary = session.summary()
     analyses = sum(e.kind == "analysis" for e in session.events)
     retunes = [e for e in session.events if e.kind == "retune"]
@@ -367,6 +406,7 @@ def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
     assert analyses == n_windows // interval == len(reports), analyses
     if cuda:
         assert launches == analyses == len(seen), (launches, analyses)
+        assert dense == 0, dense
     assert reports[-1].n_windows == n_windows
     # dense_train and ssm_train sit 0.21 apart in the 16-feature space,
     # inside ε = 0.35: with a full history DBSCAN joins them, as the
@@ -415,7 +455,256 @@ def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
             lambda: mon.ingest_array(samples)))
     mon.close()
     session.close()
-    return launches, check_main_path("full_history", seen, dev), x_last
+    outcome = {"known_workloads": summary["known_workloads"],
+               "retunes": [(e.window_id, e.tunables["microbatches"],
+                            e.tunables["remat"], e.tunables["attn_q_chunk"])
+                           for e in retunes],
+               "final": (tunables.microbatches, tunables.remat,
+                         tunables.attn_q_chunk)}
+    return (launches, check_main_path("full_history", seen, dev), x_last,
+            outcome)
+
+
+# ---------------------------------------------------------------------------
+# dense pairdist and the seed (legacy) paths
+# ---------------------------------------------------------------------------
+
+# the reference's sweep (tests/test_kernels.py:14-16): N, F, dtype, block 64
+DENSE_SWEEP = [(64, 8, torch.float32), (200, 16, torch.float32),
+               (130, 4, torch.bfloat16)]
+# window means (F = 16); the threshold is checked up to 4096, the last two
+# are timed
+DENSE_NS = (20, 130, 257, 4096, 16384)
+
+
+def dense_bound_ms(n: int, f: int, elem: int = 4) -> tuple[float, str]:
+    """Least time for the dense kernel's work on an H100: x read once and
+    the (N, N) fp32 matrix written once, against 2F + 3 flops per entry
+    (the dot product, then sum, scale and difference)."""
+    bytes_ = n * f * elem + n * n * 4
+    flops = n * n * (2 * f + 3)
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def compare_dense(x, block: int = 128):
+    """Dense kernel vs plain version on the same input; raises past the
+    tolerance.  Returns (the kernel's matrix, max abs difference, max
+    difference over its tolerance)."""
+    got = P._pairdist_cuda(x)
+    want = P._pairdist_plain(x, block=block)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    if got.shape != (n, n) or not bool((got >= 0).all()):
+        raise AssertionError(f"dense kernel: bad output {tuple(got.shape)}")
+    sq = (x.double() ** 2).sum(1)
+    err = ratio = 0.0
+    for r0 in range(0, n, 2048):                   # bounded temporaries
+        e = (got[r0:r0 + 2048].double() - want[r0:r0 + 2048].double()).abs()
+        tol = DENSE_RTOL * (sq[r0:r0 + 2048, None] + sq[None, :]) + \
+            DENSE_ATOL
+        if not bool((e <= tol).all()):
+            raise AssertionError(
+                f"dense kernel differs from plain past the tolerance "
+                f"(N={n}, F={x.shape[1]}, {x.dtype}): {float(e.max())}")
+        err = max(err, float(e.max()))
+        ratio = max(ratio, float((e / tol).max()))
+    return got, err, ratio
+
+
+def threshold_matches_nbr(x, d2, eps: float) -> int:
+    """``d2 <= ε²`` against the ε-neighbour kernel's unpacked bits on the
+    same points: must be equal bit for bit.  Returns the adjacency's
+    number of set bits."""
+    n = x.shape[0]
+    eps_sq = P._eps_sq(eps)
+    counts, packed = P._neighbor_adjacency_cuda(x.float(), eps_sq=eps_sq,
+                                                block=128)
+    adj = P.unpack_bits(packed[:n], n)
+    if not torch.equal(d2 <= eps_sq, adj):
+        raise AssertionError(
+            f"dense threshold differs from the ε-neighbour bits at "
+            f"{int(((d2 <= eps_sq) ^ adj).sum())} pairs (N={n}, ε={eps})")
+    return int(counts[:n].sum())
+
+
+def time_dense(x) -> dict:
+    n, f = x.shape
+    reps = max(5, min(200, 2 * 10 ** 8 // max(n * n, 1)))
+    bound, by = dense_bound_ms(n, f, x.element_size())
+    return {"ms": time_ms(lambda: P._pairdist_cuda(x), reps),
+            "plain_ms": time_ms(lambda: P._pairdist_plain(x),
+                                max(1, reps // 5), groups=3),
+            "library_ms": time_ms(lambda: torch.cdist(x, x).square(), reps),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_kernel_pairdist(dev) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs, timed = [], {}
+    for n, f, dtype in DENSE_SWEEP:
+        x = torch.from_numpy(np.random.default_rng(n).normal(
+            size=(n, f)).astype(np.float32)).to(dev, dtype)
+        d2, err, ratio = compare_dense(x, block=64)
+        bits = {eps: threshold_matches_nbr(x, d2, eps) for eps in (0.35, 0.3)}
+        errs.append(err)
+        emit("kernel_pairdist", n=n, f=f, dtype=str(dtype), block=64,
+             max_abs_err=err, max_err_over_tol=ratio, adjacency_bits=bits)
+    for n in DENSE_NS:
+        x = torch.from_numpy(window_means(n, seed=n)).to(dev)
+        d2, err, ratio = compare_dense(x)
+        rec = {"n": n, "f": 16, "max_abs_err": err,
+               "max_err_over_tol": ratio}
+        if n <= 4096:
+            rec["adjacency_bits"] = {eps: threshold_matches_nbr(x, d2, eps)
+                                     for eps in (0.35, 0.3)}
+        del d2
+        if n >= DENSE_NS[-2]:
+            rec.update(time_dense(x))
+            timed[n] = rec
+        errs.append(err)
+        emit("kernel_pairdist", **rec)
+    timed["max_abs_err"] = max(errs)
+    return timed
+
+
+def check_dense_main_path(phase: str, seen: list, dev) -> list:
+    """Each DBSCAN input of a seed-path run, on the card: the dense kernel
+    against its plain version, its threshold against the ε-neighbour
+    kernel's bits, and the run's legacy labels against the fast path's."""
+    recs = []
+    for x, eps, min_pts, labels in seen:
+        xt = torch.from_numpy(x).to(dev)
+        d2, err, ratio = compare_dense(xt)
+        threshold_matches_nbr(xt, d2, eps)
+        fast = dbscan(xt, eps, min_pts, device=dev)
+        if not np.array_equal(labels, fast):
+            raise AssertionError(f"legacy labels differ from the fast path's "
+                                 f"(N={x.shape[0]}, ε={eps})")
+        recs.append({"n": int(x.shape[0]), "max_abs_err": err,
+                     "max_err_over_tol": ratio,
+                     "clusters": int(labels.max() + 1)})
+    emit("main_path_parity", of=phase, kernel="pairdist", inputs=len(recs),
+         n=[r["n"] for r in recs],
+         max_abs_err=max(r["max_abs_err"] for r in recs),
+         max_err_over_tol=max(r["max_err_over_tol"] for r in recs),
+         legacy_labels_equal_fast=True)
+    return recs
+
+
+def phase_quickstart_legacy(dev, fast_events: list):
+    """The quickstart on the seed path: the dense kernel once per analysis,
+    the ε-neighbour kernel never, the quickstart's asserts, and the fast
+    run's RETUNE stream."""
+    executor = SimulatorExecutor(QUICKSTART_SCHEDULE, window_size=16,
+                                 seed=0, device=dev)
+    config = dataclasses.replace(QUICKSTART_CONFIG, impl="legacy")
+    seen = []
+    with dbscan_inputs(seen), KermitSession(
+            config, executor=executor, device=dev) as session:
+        P.LAUNCHES = P.DENSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        tunables = session.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        nbr, dense = P.LAUNCHES, P.DENSE_LAUNCHES
+        summary = session.summary()
+        events = event_stream(session.events)
+    analyses = sum(e[1] == "analysis" for e in events)
+    retunes = [e for e in events if e[1] == "retune"]
+    emit("quickstart_legacy", seconds=seconds, windows=summary["windows"],
+         known_workloads=summary["known_workloads"],
+         anticipated_hybrids=summary["anticipated_hybrids"],
+         analyses=analyses, kernel_launches={"pairdist": dense,
+                                             "nbr_adjacency": nbr},
+         final=(tunables.microbatches, tunables.remat),
+         events=events, quickstart_events=fast_events,
+         plugin=summary["plugin"])
+    assert summary["known_workloads"] >= 2, summary
+    assert retunes, "the plan phase should have retuned at least once"
+    assert (tunables.microbatches, tunables.remat) == (2, "none"), tunables
+    assert dense == analyses == len(seen) > 0, (dense, analyses)
+    assert nbr == 0, nbr
+    assert retunes == [e for e in fast_events if e[1] == "retune"], retunes
+    return dense, check_dense_main_path("quickstart_legacy", seen, dev)
+
+
+def phase_legacy_history(dev, full: dict, n_windows: int = 2048,
+                         interval: int = 512):
+    """The first ``n_windows`` of ``full_history``'s stream through the
+    seed path (retention 4096, an analysis every ``interval`` windows):
+    the last analysis's DBSCAN runs the dense kernel over the full ring.
+    Half of ``full_history``'s windows: the seed LSTM loop (30 epochs over
+    every batch) took the phase past 90 s at 4096."""
+    config = KermitConfig(analysis=AnalysisConfig(interval=interval),
+                          monitor=MonitorConfig(retention=4096),
+                          impl="legacy")
+    n_seg = -(-4096 // 66) + 1                  # full_history's schedule
+    schedule = [(ARCHETYPES[i % len(ARCHETYPES)], 64) for i in range(n_seg)]
+    executor = SimulatorExecutor(schedule, window_size=32, seed=0,
+                                 device=dev)
+    samples = executor.samples[:n_windows * 32]
+    session = KermitSession(config, executor=executor, device=dev)
+    seen, reports = [], []
+    with dbscan_inputs(seen), capture(session.analyser, "run", reports,
+                                      lambda a, out: out):
+        P.LAUNCHES = P.DENSE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        tunables = session.run(samples)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        nbr, dense = P.LAUNCHES, P.DENSE_LAUNCHES
+    summary = session.summary()
+    analyses = sum(e.kind == "analysis" for e in session.events)
+    retunes = [e for e in session.events if e.kind == "retune"]
+    assert summary["windows"] == n_windows, summary
+    assert analyses == n_windows // interval == len(reports), analyses
+    assert dense == analyses == len(seen), (dense, analyses)
+    assert nbr == 0, nbr
+    assert reports[-1].n_windows == n_windows
+
+    # monitor throughput with the trained models, on a fresh seed monitor
+    mon = type(session.monitor)(window_size=32,
+                                detector=session.monitor.detector,
+                                classifier=session.analyser.classifier,
+                                predictor=session.analyser.predictor,
+                                retention=n_windows, fast=False, device=dev)
+    mon.ingest_array(samples[:32 * 16])             # warm
+    part = samples[:32 * 512]
+    t1 = time.perf_counter()
+    ctx = mon.ingest_array(part)
+    mon_s = time.perf_counter() - t1
+    mon.close()
+    x_last, eps, min_pts, labels_last = seen[-1]
+    emit("legacy_history", seconds=seconds, windows=n_windows,
+         interval=interval, analyses=analyses,
+         kernel_launches={"pairdist": dense, "nbr_adjacency": nbr},
+         dbscan_points=[int(r[0].shape[0]) for r in seen],
+         clusters_last=int(labels_last.max() + 1),
+         discover_s=[r.discover_seconds for r in reports],
+         train_s=[r.train_seconds for r in reports],
+         dbscan_s=[r.dbscan_seconds for r in reports],
+         forest_fit_s=[r.forest_seconds for r in reports],
+         lstm_fit_s=[r.predictor_seconds for r in reports],
+         monitor_windows_per_s=len(ctx) / mon_s,
+         known_workloads=summary["known_workloads"],
+         anticipated_hybrids=summary["anticipated_hybrids"],
+         retunes=[(e.window_id, e.tunables["microbatches"],
+                   e.tunables["remat"], e.tunables["attn_q_chunk"])
+                  for e in retunes],
+         final=(tunables.microbatches, tunables.remat,
+                tunables.attn_q_chunk),
+         full_history=full, plugin=summary["plugin"])
+    assert summary["known_workloads"] >= 2, summary
+    session.close()
+    recs = check_dense_main_path("legacy_history", seen, dev)
+
+    # where the device time of the seed DBSCAN goes: the last analysis's
+    # input once more under the profiler (after the counted run)
+    emit("profile", what="legacy dbscan (last analysis)", **device_profile(
+        lambda: dbscan(x_last, eps, min_pts, impl="legacy", device=dev)))
+    return dense, recs, x_last
 
 
 # ---------------------------------------------------------------------------
@@ -709,12 +998,12 @@ def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
 
 
 def reset_counters() -> None:
-    P.LAUNCHES = FA.LAUNCHES = SSD.LAUNCHES = 0
+    P.LAUNCHES = P.DENSE_LAUNCHES = FA.LAUNCHES = SSD.LAUNCHES = 0
 
 
 def counters() -> dict:
     return {"nbr_adjacency": P.LAUNCHES, "flash_attention": FA.LAUNCHES,
-            "ssd_scan": SSD.LAUNCHES}
+            "ssd_scan": SSD.LAUNCHES, "pairdist": P.DENSE_LAUNCHES}
 
 
 def check_recorded(phase: str, name: str, recorded: list) -> list:
@@ -780,6 +1069,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
             name, launches[name], calls)
     nbr_launches = launches["nbr_adjacency"]
     assert nbr_launches == analyses == len(seen) > 0, (nbr_launches, analyses)
+    assert launches["pairdist"] == 0, launches
     w0 = replans[0]
     before = [w["p99"] for w in wl if change_w <= w["window"] < w0]
     p99_before = statistics.median(before) if before else None
@@ -947,18 +1237,20 @@ def main() -> int:
          nvidia_smi=smi)
 
     phase_build()
-    timed, timed_ssd = {}, {}
+    timed, timed_ssd, timed_dense = {}, {}, {}
     for name, fn in (("kernel_nbr", lambda: phase_kernel(dev)),
                      ("kernel_flash", lambda: timed.update(
                          phase_kernel_flash(dev))),
                      ("kernel_ssd", lambda: timed_ssd.update(
-                         phase_kernel_ssd(dev)))):
+                         phase_kernel_ssd(dev))),
+                     ("kernel_pairdist", lambda: timed_dense.update(
+                         phase_kernel_pairdist(dev)))):
         t0 = time.perf_counter()
         fn()
         emit("phase_seconds", of=name, seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    quick_launches, quick = phase_quickstart(dev)
-    full_launches, full, x_last = phase_full_history(dev)
+    quick_launches, quick, quick_events = phase_quickstart(dev)
+    full_launches, full, x_last, full_outcome = phase_full_history(dev)
     # the ε-neighbour kernel timed at the main path's largest input: the
     # last analysis, over the full ring
     x_main = torch.from_numpy(x_last).to(dev)
@@ -971,6 +1263,25 @@ def main() -> int:
     emit("profile", what="nbr_adjacency x20", **prof)
     emit("phase_seconds", of="quickstart+full_history",
          seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    qleg_launches, qleg = phase_quickstart_legacy(dev, quick_events)
+    emit("phase_seconds", of="quickstart_legacy",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    hleg_launches, hleg, x_dense = phase_legacy_history(dev, full_outcome)
+    emit("phase_seconds", of="legacy_history",
+         seconds=time.perf_counter() - t0)
+    # the dense kernel timed at the seed path's largest input: the last
+    # analysis, over the full ring
+    x_dense = torch.from_numpy(x_dense).to(dev)
+    dense_shape = time_dense(x_dense)
+    prof = device_profile(lambda: [P._pairdist_cuda(x_dense)
+                                   for _ in range(20)])
+    kern = [t / n for name, n, t in prof["top"] if "pairdist_kernel" in name]
+    dense_dev_ms = kern[0] if kern else None     # per launch the profiler saw
+    emit("profile", what="pairdist x20", **prof)
+    release_memory()
 
     qwen2 = get_config("qwen2-1.5b")
     t0 = time.perf_counter()
@@ -1067,7 +1378,27 @@ def main() -> int:
         "device_ms_zamba2": (hybrid["device_ms"]["ssd"] or [None])[0],
         "parity": {"main_path_inputs": len(ssd_parity)},
         "tolerance": "|kernel - plain| <= 1e-4 + 1e-4·|plain| for y and the "
-                     "state (fp32 outputs, bf16 or fp32 inputs)"}]}),
+                     "state (fp32 outputs, bf16 or fp32 inputs)"}, {
+        "name": "pairdist", "route": "cuda", "source": DENSE_SRC,
+        "replaces": DENSE_REPLACES, "launches": qleg_launches + hleg_launches,
+        "launches_by_phase": {"quickstart_legacy": qleg_launches,
+                              "legacy_history": hleg_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in qleg + hleg),
+        "ms": dense_shape["ms"], "plain_ms": dense_shape["plain_ms"],
+        "bound_ms": dense_shape["bound_ms"],
+        "bound_by": dense_shape["bound_by"],
+        "library_ms": dense_shape["library_ms"],
+        "library": "torch.cdist(x, x).square()",
+        "n": int(x_dense.shape[0]), "device_ms": dense_dev_ms,
+        "timed": {n: timed_dense[n] for n in DENSE_NS[-2:]},
+        "parity": {"main_path_inputs": len(qleg + hleg),
+                   "n": sorted({r["n"] for r in qleg + hleg}),
+                   "sweep_max_abs_err": timed_dense["max_abs_err"],
+                   "threshold_equals_nbr_bits": True,
+                   "legacy_labels_equal_fast": True},
+        "tolerance": "|kernel - plain| <= 1e-5·(|x_i|² + |x_j|²) + 1e-6 "
+                     "per entry; d2 <= ε² equal to the ε-neighbour kernel's "
+                     "bits"}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

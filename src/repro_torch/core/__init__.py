@@ -4,8 +4,9 @@ On-line:  monitor, change_detector, plugin, explorer, lstm.
 Off-line: analyser, dbscan, characterize, forest, synthesizer.
 Knowledge: knowledge (WorkloadDB).  Substrate: windows, simulator.
 
-Programs drive them through the ``repro_torch.kermit`` facade.  ``kmeans``
-and the deprecated ``AutonomicManager`` shim are not ported (ROADMAP).
+Programs drive them through the ``repro_torch.kermit`` facade.  The
+``AutonomicManager`` exported here is the deprecated pre-facade shim.
+``kmeans`` is not ported (ROADMAP).
 """
 from repro_torch.core.windows import (FEATURES, NUM_FEATURES, WindowSeries,
                                       make_windows)
@@ -20,3 +21,4 @@ from repro_torch.core.knowledge import WorkloadDB, WorkloadRecord, UNKNOWN
 from repro_torch.core.monitor import KermitMonitor, WorkloadContext
 from repro_torch.core.analyser import KermitAnalyser, AnalysisReport
 from repro_torch.core.plugin import KermitPlugin
+from repro_torch.core.autonomic import AutonomicManager

@@ -1,7 +1,8 @@
 """KWanl — the off-line (batch) analysis subsystem.
 
-Port of ``repro/core/analyser.py`` (the fast path).  Discovery runs
-DBSCAN through the hand-written neighbour kernel on the card; forest and
+Port of ``repro/core/analyser.py``.  Discovery runs DBSCAN through a
+hand-written kernel on the card (the ε-neighbour kernel on the fast
+path, the dense ``pairdist`` kernel on the seed path); forest and
 predictor training run on the analyser's device.  Reported seconds end in
 a device synchronize, so they include the work and not just its launch.
 
@@ -65,10 +66,13 @@ class AnalysisReport:
 
 
 class KermitAnalyser:
-    """The fast analysis path: streaming DBSCAN (the CUDA kernel on the
-    card, its plain version on the CPU), batched forest training and the
-    early-stopping predictor loop.  The reference's seed path
-    (``fast=False``) is queued in ROADMAP."""
+    """``fast=True`` (default) runs the fast analysis path: streaming
+    DBSCAN (the ε-neighbour kernel on the card, its plain version on the
+    CPU), batched forest training and the early-stopping predictor loop.
+    ``fast=False`` reproduces the seed implementation end to end — the
+    dense distance matrix (the ``pairdist`` kernel on the card), one-hop
+    label propagation, the eager per-tree forest fit and the per-batch
+    predictor loop over all its epochs — the baseline of the fast path."""
 
     def __init__(self, db: WorkloadDB, *,
                  detector: Optional[ChangeDetector] = None,
@@ -76,10 +80,6 @@ class KermitAnalyser:
                  max_classes: int = 64,
                  dbscan_impl: str = "auto", fast: bool = True,
                  device=None):
-        if not fast:
-            raise NotImplementedError(
-                "the seed analysis path (fast=False) is not ported yet "
-                "(ROADMAP queue A: legacy/seed paths)")
         self.device = resolve_device(device)
         self.db = db
         self.detector = detector or ChangeDetector(device=self.device)
@@ -87,7 +87,7 @@ class KermitAnalyser:
         self.min_pts = dbscan_min_pts
         self.max_classes = max_classes
         self.fast = fast
-        self.dbscan_impl = dbscan_impl
+        self.dbscan_impl = dbscan_impl if fast else "legacy"
         self.classifier: Optional[RandomForest] = None
         self.transition_classifier: Optional[RandomForest] = None
         self.predictor: Optional[WorkloadPredictor] = None
@@ -189,14 +189,14 @@ class KermitAnalyser:
                 y = np.concatenate([y, yb, ys[present]])
 
         n_classes = int(max(self.db.labels(), default=0)) + 1
-        max_samples = _FAST_MAX_SAMPLES
+        max_samples = _FAST_MAX_SAMPLES if self.fast else 0
         fc = forest_cfg or ForestConfig(n_trees=24, depth=6,
                                         n_classes=min(n_classes,
                                                       self.max_classes),
                                         max_samples=max_samples)
         t1 = time.perf_counter()
         self.classifier = RandomForest(fc, device=self.device).fit(
-            X, y, seed=seed)
+            X, y, seed=seed, compiled=self.fast)
 
         # transition classifier on rate-of-change features
         roc = rate_of_change(ws.mean)
@@ -204,7 +204,8 @@ class KermitAnalyser:
         tfc = ForestConfig(n_trees=16, depth=5, n_classes=2,
                            max_samples=max_samples)
         self.transition_classifier = RandomForest(
-            tfc, device=self.device).fit(roc, ty, seed=seed)
+            tfc, device=self.device).fit(roc, ty, seed=seed,
+                                         compiled=self.fast)
         rep.forest_seconds = self._since(t1)
 
         # predictor on the label sequence (steady windows carry labels;
@@ -217,6 +218,9 @@ class KermitAnalyser:
                        first[0] if first.size else 0)
         if predictor_cfg is not None:
             pc = predictor_cfg
+        elif not self.fast:
+            pc = PredictorConfig(n_classes=max(int(seq.max()) + 1, 2),
+                                 epochs=30)
         else:
             # bounded retraining: a uniform subsample of history windows
             # caps per-analysis compute regardless of N, and a larger batch
@@ -233,7 +237,7 @@ class KermitAnalyser:
         t1 = time.perf_counter()
         try:
             self.predictor = WorkloadPredictor(pc, device=self.device).fit(
-                seq, seed=seed)
+                seq, seed=seed, compiled=self.fast)
         except ValueError:
             self.predictor = None            # sequence too short
         rep.predictor_seconds = self._since(t1)

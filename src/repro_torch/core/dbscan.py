@@ -1,6 +1,6 @@
 """DBSCAN workload discovery (Algorithm 2, discovery step).
 
-Port of ``repro/core/dbscan.py``.  Two paths share one semantics:
+Port of ``repro/core/dbscan.py``.  Three paths share one semantics:
 
 * **fast** (default) — ``kernels.pairdist.neighbor_adjacency`` gives
   per-row ε-neighbour counts and the bit-packed adjacency (the CUDA kernel
@@ -9,10 +9,14 @@ Port of ``repro/core/dbscan.py``.  Two paths share one semantics:
   neighbour sweeps is O(log N).  Each sweep reads the packed adjacency
   strip by strip, so no (N, N) tensor is built, and costs one host sync
   for its convergence test.
-* **ref** — the seed formulation: dense (N, N) distance matrix and one-hop
-  propagation.  Kept as the parity oracle.
+* **legacy / seed** — the seed formulation: the dense (N, N) distance
+  matrix from ``kernels.pairdist.pairdist`` (the CUDA kernel on the card,
+  its plain version on the CPU) and one-hop-per-iteration propagation.
+  The baseline the fast path is measured against.
+* **ref** — the same one-hop propagation over the dense oracle
+  ``ref_pairdist``; the parity oracle.
 
-Both yield identical labels: core points take the minimum index of their
+All yield identical labels: core points take the minimum index of their
 core-connected component, border points adopt the smallest core-neighbour
 label, noise is -1, and clusters are renumbered 0..k-1 in root order.
 ``kmeans`` (the Fig-10 baseline, off the main path) is queued in ROADMAP.
@@ -23,12 +27,22 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.pairdist import (neighbor_adjacency, ref_pairdist,
-                                          unpack_bits)
+from repro_torch.kernels.pairdist import (neighbor_adjacency, pairdist,
+                                          ref_pairdist, unpack_bits)
 
 # elements of one unpacked adjacency strip (rows x Npad); strips are a
 # multiple of the kernel's block rows
 _STRIP_ELEMS = 1 << 22
+
+
+def pairwise_sq_dists(x, impl: str = "auto"):
+    """Dense (N, N) squared distances.  The seed entry point — the fast
+    path never calls this: ``"legacy"``/``"seed"`` (and the reference's
+    kernel names ``"pallas"``/``"pallas_interpret"``) run ``pairdist``,
+    anything else the dense oracle."""
+    if impl in ("pallas", "pallas_interpret", "legacy", "seed"):
+        return pairdist(x, impl=impl)
+    return ref_pairdist(x)
 
 
 def _dbscan_core(d2, eps_sq: float, min_pts: int):
@@ -127,16 +141,18 @@ def dbscan(x, eps: float, min_pts: int = 5, impl: str = "auto",
     ``device``: where to run; None means the tensor's own device, or CUDA
     for array input.  ``impl``: "auto" takes the streaming path (the CUDA
     kernel on the card, its plain version on the CPU); "ref" is the dense
-    one-hop oracle (see ``kernels/dispatch.py``).
+    one-hop oracle; "legacy"/"seed" is the seed path, the dense
+    ``pairdist`` matrix then one-hop propagation (see
+    ``kernels/dispatch.py``).
     """
     x = _as_points(x, device)
     n = x.shape[0]
     if n == 0:
         return np.zeros(0, np.int64)
     block = max(8, block - block % 8)   # match the kernel's bit-pack rounding
-    if dispatch.resolve(impl, x.device) == "ref":
-        eps_sq = float(np.float32(eps * eps))
-        raw = _dbscan_core(ref_pairdist(x), eps_sq, int(min_pts))
+    if impl in ("ref", "legacy", "seed"):
+        d2 = pairwise_sq_dists(x, "auto" if impl == "ref" else impl)
+        raw = _dbscan_core(d2, float(np.float32(eps * eps)), int(min_pts))
         return _relabel(raw.cpu().numpy())
     counts, packed = neighbor_adjacency(x, eps, block=block, impl=impl)
     return labels_from_adjacency(counts, packed, n, min_pts, block)

@@ -12,8 +12,17 @@ draws.  Where the reference's compiled arithmetic is bit-gated downstream
 (quantile levels and interpolation, Gini impurity, tree averaging) the
 port states the float32 operation sequence XLA runs — including its fused
 multiply-adds, emulated exactly through float64 — so splits and
-predictions come out identical.  The seed eager fit (``compiled=False``)
-is not ported (ROADMAP queue A, legacy/seed paths).
+predictions come out identical.
+
+``fit(compiled=False)`` is the seed eager fit (``_fit_tree_seed``), the
+baseline of the seed analysis path: one tree at a time, N bootstrap draws
+as per-row weights, bins recomputed per tree and C-wide one-hot histogram
+scatters.  The reference runs it op by op, so its Gini arithmetic has no
+fused multiply-adds, and neither has the port's.  With the same draws
+(``_forest_draws`` with S = N: the reference's seed and compiled fits
+walk one key chain) it fits the trees the compiled path fits, except
+that labels outside [0, C) drop out of the one-hot rows instead of
+aliasing.
 """
 from __future__ import annotations
 
@@ -194,6 +203,65 @@ def _fit_trees(xs, ys, bs, fmask, grid, fc: ForestConfig):
     return feat, thr, dist
 
 
+def _fit_tree_seed(x, y, w, fmask, grid, fc: ForestConfig):
+    """The reference's seed tree fit (``_fit_tree_seed``) for one tree.
+    x (N, F), y (N,), w (N,) bootstrap multiplicities, fmask (F,),
+    grid (F, Q).  Returns feat (M,), thr (M,), dist (2^D, C)."""
+    N, F = x.shape
+    D, Q, C = fc.depth, fc.n_quantiles, fc.n_classes
+    M = 2 ** D - 1
+    dev = x.device
+    bins = torch.sum(x[:, :, None] > grid[None, :, :], dim=-1)      # (N, F)
+    onehot_y = (y[:, None] == torch.arange(C, device=dev)).to(
+        torch.float32) * w[:, None]                                  # (N, C)
+    local = torch.zeros(N, dtype=torch.long, device=dev)
+    feat = torch.zeros(M, dtype=torch.int32, device=dev)
+    thr = torch.zeros(M, dtype=torch.float32, device=dev)
+    rows = torch.arange(N, device=dev)
+
+    for d in range(D):
+        n_nodes = 2 ** d
+        base = n_nodes - 1
+        seg = (local[:, None] * (F * (Q + 1))
+               + torch.arange(F, device=dev)[None, :] * (Q + 1) + bins)
+        hist = torch.zeros((n_nodes * F * (Q + 1), C), dtype=torch.float32,
+                           device=dev)
+        hist.index_add_(0, seg.reshape(-1),
+                        onehot_y.repeat_interleave(F, dim=0))
+        hist = hist.reshape(n_nodes, F, Q + 1, C)
+
+        left = torch.cumsum(hist, dim=2)[:, :, :Q, :]
+        right = hist.sum(dim=2, keepdim=True) - left
+        nl = left.sum(-1)
+        nr = right.sum(-1)
+        gl = 1.0 - _seq_sum(torch.square(
+            left / torch.clamp_min(nl[..., None], 1e-9)), -1)
+        gr = 1.0 - _seq_sum(torch.square(
+            right / torch.clamp_min(nr[..., None], 1e-9)), -1)
+        ntot = torch.clamp_min(nl + nr, 1e-9)
+        imp = (nl * gl + nr * gr) / ntot
+        bad = (nl < fc.min_leaf) | (nr < fc.min_leaf) | ~fmask[None, :, None]
+        imp = torch.where(bad, torch.inf, imp)
+
+        flat = imp.reshape(n_nodes, F * Q)
+        best = torch.argmin(flat, dim=1)
+        bf = best // Q
+        bthr = grid[bf, best % Q]
+        no_split = ~torch.isfinite(flat.amin(dim=1))
+        bthr = torch.where(no_split, torch.inf, bthr)
+        feat[base:base + n_nodes] = bf.to(torch.int32)
+        thr[base:base + n_nodes] = bthr
+
+        go_right = x[rows, bf[local]] > bthr[local]
+        local = local * 2 + go_right.long()
+
+    leaf = _route(x, feat[None], thr[None], D)[0]
+    dist = torch.zeros((2 ** D, C), dtype=torch.float32, device=dev)
+    dist.index_add_(0, leaf, onehot_y)
+    dist = dist / torch.clamp_min(dist.sum(-1, keepdim=True), 1e-9)
+    return feat, thr, dist
+
+
 def _fit_forest_impl(rows, fmask, x, y, grid, fc: ForestConfig):
     """rows (T, S) bootstrap indices, fmask (T, F), x (N, F), y (N,)."""
     # quantile-bin indices are tree-independent: bins[n, f] =
@@ -221,18 +289,27 @@ class RandomForest:
         self.params = None
         self.grid = None
 
-    def fit(self, x, y, seed: int = 0):
+    def fit(self, x, y, seed: int = 0, compiled: bool = True):
+        """``compiled=False`` runs the seed eager fit (the seed analysis
+        path's baseline): N bootstrap draws per tree, ``max_samples``
+        unused, one tree at a time."""
         fc = self.fc
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        y = torch.as_tensor(np.asarray(y, np.int64), device=self.device)
+        dev = self.device
+        x = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        y = torch.as_tensor(np.asarray(y, np.int64), device=dev)
         self.grid = _quantile_grid(x, fc.n_quantiles)
         n = x.shape[0]
-        s = min(fc.max_samples, n) if fc.max_samples else n
+        s = min(fc.max_samples, n) if fc.max_samples and compiled else n
         rows, fmask = _forest_draws(seed, fc.n_trees, n, s, x.shape[1],
                                     fc.feature_frac)
-        self.params = _fit_forest_impl(rows.to(self.device),
-                                       fmask.to(self.device), x, y,
-                                       self.grid, fc)
+        rows, fmask = rows.to(dev), fmask.to(dev)
+        if compiled:
+            self.params = _fit_forest_impl(rows, fmask, x, y, self.grid, fc)
+            return self
+        trees = [_fit_tree_seed(x, y, torch.bincount(r, minlength=n).to(
+            torch.float32), m, self.grid, fc) for r, m in zip(rows, fmask)]
+        self.params = {key: torch.stack([t[i] for t in trees])
+                       for i, key in enumerate(("feat", "thr", "dist"))}
         return self
 
     def _predict_dist(self, x):

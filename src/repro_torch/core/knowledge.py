@@ -29,9 +29,9 @@ Invariants (see docs/api.md "Knowledge"):
   matrix (row order == record insertion order, the ``configs/base`` codec
   style) so ``find_match`` / ``nearest_config`` are one batched dispatch
   over all records: one batched Welch kernel plus a row-wise numpy
-  distance reduction.  The reference's seed per-record loop
-  (``impl="legacy"``) is not ported; the reference itself is the parity
-  oracle (``tests/test_torch_knowledge.py``).
+  distance reduction.  ``impl="legacy"`` keeps the seed per-record Python
+  loop as the parity oracle — both paths return identical labels
+  (``tests/test_torch_knowledge.py``, against the reference too).
 * **Drift adaptation.**  ``observe`` blends fresh characterizations with an
   EMA floor (``drift_alpha`` — 0 reproduces the seed count-weighted merge),
   tracks a per-record ``drift_score``, and re-anchors a class whose
@@ -174,9 +174,9 @@ _RECORD_FIELDS = {f.name for f in dataclasses.fields(WorkloadRecord)}
 
 
 class WorkloadDB:
-    """``impl``: the ``KermitConfig.impl`` policy; every value but
-    ``"legacy"``/``"seed"`` (the reference's per-record seed loop, not
-    ported) takes the batched match path."""
+    """``impl`` selects the match path: anything but ``"legacy"``/``"seed"``
+    uses the vectorized struct-of-arrays dispatch; the legacy per-record
+    loop is the frozen parity oracle."""
 
     def __init__(self, root: str | Path | None = None,
                  drift_eps: float = 1.0,
@@ -197,10 +197,7 @@ class WorkloadDB:
         self.merge_eps = merge_eps
         self.max_records = max_records
         self.max_stored_trace = max_stored_trace
-        if impl in ("legacy", "seed"):
-            raise NotImplementedError(
-                "the per-record seed WorkloadDB path is not ported yet "
-                "(ROADMAP queue A: legacy/seed paths)")
+        self.impl = "legacy" if impl in ("legacy", "seed") else "fast"
         self.matcher = matcher or ChangeDetector(alpha=0.001, quorum=0.5,
                                                  device=self.device)
         self._journal: list[dict] = []        # drained by KermitSession
@@ -283,15 +280,19 @@ class WorkloadDB:
 
     # -- core operations ----------------------------------------------------
 
-    def find_match(self, char: dict, *,
-                   tenant: int | None = None) -> Optional[int]:
-        """Statistical match (batched Welch kernel) with an L2 ranking
-        among the statistical matches; returns the matching label or None.  Synthetic
+    def find_match(self, char: dict, *, tenant: int | None = None,
+                   impl: str | None = None) -> Optional[int]:
+        """Statistical match (batched Welch kernel; ``impl="legacy"`` runs
+        the seed per-record loop) with an L2 ranking among the statistical
+        matches; returns the matching label or None.  Synthetic
         (ZSL-anticipated) records never match — a real observation of an
         anticipated hybrid is a *new* class discovery, not a re-observation.
         ``tenant`` restricts matching to that tenant's records (fleet
         namespace isolation); None considers every record.
         """
+        impl = self.impl if impl is None else impl
+        if impl in ("legacy", "seed"):
+            return self._find_match_legacy(char, tenant=tenant)
         A = self._ensure_arrays()
         R = A["n"]
         if R == 0:
@@ -334,6 +335,21 @@ class WorkloadDB:
             f32(char["std"]), f32(char["n"]), mask, alpha=m.alpha,
             quorum=m.quorum)
         return flags.cpu().numpy()[:R]
+
+    def _find_match_legacy(self, char: dict, *,
+                           tenant: int | None = None) -> Optional[int]:
+        best, best_d = None, np.inf
+        for label, rec in self.records.items():
+            if rec.is_synthetic:
+                continue
+            if tenant is not None and rec.tenant != tenant:
+                continue
+            d = l2_drift(rec.characterization, char)
+            if self.matcher.match_characterization(rec.characterization,
+                                                   char):
+                if d < best_d:
+                    best, best_d = label, d
+        return best
 
     def find_synthetic(self, combo: tuple) -> Optional[int]:
         """Label of the synthetic record anticipating ``combo`` (a sorted
@@ -467,7 +483,8 @@ class WorkloadDB:
         return dict(rec.sensitivity)
 
     def nearest_config(self, char: dict, *, exclude_label: int | None = None,
-                       tenant: int | None = None) -> Optional[tuple]:
+                       tenant: int | None = None,
+                       impl: str | None = None) -> Optional[tuple]:
         """Warm-start lookup: the stored configuration whose workload
         characterization is nearest (L2 over means) to ``char``.  Unlike
         ``find_match`` this ranks *synthetic* (ZSL-anticipated) records too —
@@ -479,8 +496,13 @@ class WorkloadDB:
         excluding a merged (absorbed) label excludes its surviving record.
         Returns ``(config, label, distance)`` or None when no record has a
         config."""
+        impl = self.impl if impl is None else impl
         if exclude_label is not None:
             exclude_label = self.resolve(exclude_label)
+        if impl in ("legacy", "seed"):
+            return self._nearest_config_legacy(char,
+                                               exclude_label=exclude_label,
+                                               tenant=tenant)
         A = self._ensure_arrays()
         if A["n"] == 0:
             return None
@@ -497,6 +519,23 @@ class WorkloadDB:
         i = cand[np.argmin(d[cand])]
         label = int(A["labels"][i])
         return dict(self.records[label].config), label, float(d[i])
+
+    def _nearest_config_legacy(self, char: dict, *,
+                               exclude_label: int | None = None,
+                               tenant: int | None = None
+                               ) -> Optional[tuple]:
+        best, best_label, best_d = None, None, np.inf
+        for label, rec in self.records.items():
+            if label == exclude_label or rec.config is None:
+                continue
+            if tenant is not None and rec.tenant != tenant:
+                continue
+            d = l2_drift(rec.characterization, char)
+            if d < best_d:
+                best, best_label, best_d = rec.config, label, d
+        if best is None:
+            return None
+        return dict(best), best_label, float(best_d)
 
     def pure_characterizations(self) -> dict:
         return {l: r.characterization for l, r in self.records.items()

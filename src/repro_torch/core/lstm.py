@@ -6,6 +6,10 @@ steps takes the place of ``lax.scan``, gradients come from autograd, and
 the update is the reference's AdamW (``optim/adamw.py``).  Parameters are
 a dict of tensors with the reference's names and shapes.
 
+``fit(compiled=False)`` is the seed per-batch loop, the seed analysis
+path's baseline: every one of ``pc.epochs`` epochs, one permutation each,
+no early stopping.  Its steps are the compiled path's steps.
+
 Random draws — the initial parameters and one permutation per epoch — come
 from ``_init_draws`` and ``_permutations``, both on a CPU generator so the
 CPU and the card draw the same numbers; tests replace them with the
@@ -14,7 +18,7 @@ reference's ``jax.random`` draws.  The numpy subsample of long histories
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -175,7 +179,9 @@ class WorkloadPredictor:
         self.device = resolve_device(device)
         self.params = None
 
-    def fit(self, labels: np.ndarray, seed: int = 0):
+    def fit(self, labels: np.ndarray, seed: int = 0, compiled: bool = True):
+        """``compiled=False`` runs the seed per-batch loop: all
+        ``pc.epochs`` epochs, whatever ``pc.early_stop_tol`` says."""
         pc = self.pc
         dev = self.device
         xs, ys = _make_dataset(np.asarray(labels, np.int32), pc)
@@ -200,9 +206,10 @@ class WorkloadPredictor:
             if n >= pc.batch else 0
         if n_batches:
             min_epochs = -(-oc.warmup // n_batches) + pc.patience + 2
-            params, opt, _ = _train(params, opt, xs_oh, ys,
-                                    _permutations(seed + 1, n), pc, oc,
-                                    n_batches, min_epochs=min_epochs)
+            params, opt, _ = _train(
+                params, opt, xs_oh, ys, _permutations(seed + 1, n),
+                pc if compiled else replace(pc, early_stop_tol=0.0), oc,
+                n_batches, min_epochs=min_epochs)
         self.params = params
         return self
 

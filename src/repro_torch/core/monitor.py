@@ -1,19 +1,24 @@
 """KWmon — the KERMIT Workload Monitor (on-line subsystem core).
 
-Port of ``repro/core/monitor.py`` (the fused fast path).  Streams raw
-telemetry, aggregates ``window_size`` samples into observation windows
-O_t, runs the on-line pipeline (ChangeDetector -> WorkloadClassifier ->
-WorkloadPredictor) and emits workload-context objects C_t carrying the
-current label and the predicted labels at t+1 / t+5 / t+10.
+Port of ``repro/core/monitor.py``.  Streams raw telemetry, aggregates
+``window_size`` samples into observation windows O_t, runs the on-line
+pipeline (ChangeDetector -> WorkloadClassifier -> WorkloadPredictor) and
+emits workload-context objects C_t carrying the current label and the
+predicted labels at t+1 / t+5 / t+10.  Two paths:
 
-Each ingested window batch runs ``_monitor_step``: Welch change detection,
-forest classification and LSTM horizon prediction over the whole batch on
-the monitor's device, with one host copy of the results per batch.
-Batches are chunked to at most ``_MAX_BATCH`` windows and padded to the
-reference's buckets.  Per-window state lives in a preallocated
-``WindowRing``, contexts in a bounded deque, and JSONL context writes are
-buffered and interval-flushed.  The reference's per-sample seed path
-(``fast=False``) and the fleet step are queued in ROADMAP.
+* ``fast=True`` (default) — each ingested window batch runs
+  ``_monitor_step``: Welch change detection, forest classification and
+  LSTM horizon prediction over the whole batch on the monitor's device,
+  with one host copy of the results per batch.  Batches are chunked to at
+  most ``_MAX_BATCH`` windows and padded to the reference's buckets.
+* ``fast=False`` — the seed per-sample path (``_emit``, one window at a
+  time, three host round-trips each), the seed loop's baseline.  The fast
+  path falls back to it per window for duck-typed models.
+
+Both emit identical labels, flags and predictions.  Per-window state
+lives in a preallocated ``WindowRing``, contexts in a bounded deque, and
+JSONL context writes are buffered and interval-flushed.  The fleet step
+is queued in ROADMAP.
 """
 from __future__ import annotations
 
@@ -105,10 +110,6 @@ class KermitMonitor:
                  ctx_retention: int = 4096,
                  ctx_flush_every: int = 64,
                  device=None):
-        if not fast:
-            raise NotImplementedError(
-                "the per-sample seed monitor (fast=False) is not ported yet "
-                "(ROADMAP queue A: legacy/seed paths)")
         self.device = resolve_device(device)
         self.window_size = window_size
         self.detector = detector or ChangeDetector(device=self.device)
@@ -180,12 +181,22 @@ class KermitMonitor:
         arr = np.stack(self._buf)
         self._buf.clear()
         mean, var = arr.mean(0), arr.var(0, ddof=1)
-        return self._emit_fast(mean[None], var[None])[0]
+        if self.fast:
+            return self._emit_fast(mean[None], var[None])[0]
+        return self._emit(mean, var)
 
     def ingest_array(self, samples) -> list:
-        """Feed a whole (N, F) telemetry batch: reshaped into windows up
-        front, every chunk of windows runs one ``_monitor_step``."""
+        """Feed a whole (N, F) telemetry batch.  On the fast path it is
+        reshaped into windows up front and every chunk of windows runs one
+        ``_monitor_step``; the seed path loops ``ingest`` per sample."""
         samples = np.asarray(samples, np.float32)
+        if not self.fast:
+            out = []
+            for s in samples:
+                c = self.ingest(s)
+                if c is not None:
+                    out.append(c)
+            return out
         if self._buf:
             pending = np.stack(self._buf)
             self._buf.clear()
@@ -200,6 +211,30 @@ class KermitMonitor:
         self._buf.extend(samples[n_win * W:])
         return out
 
+    # -- seed per-window path (baseline / parity oracle) -----------------------
+
+    def _emit(self, mean, var) -> WorkloadContext:
+        n = self.window_size
+        in_trans = False
+        if self._prev_window is not None:
+            in_trans = self.detector.online(self._prev_window, (mean, var, n))
+        self._prev_window = (mean, var, n)
+
+        label = UNKNOWN
+        if self.classifier is not None and not in_trans:
+            label = int(self.classifier.predict(mean[None])[0])
+        ring = self._ring_for(mean)
+        ring.push(mean, var, label)
+
+        predicted = {h: UNKNOWN for h in HORIZONS}
+        if self.predictor is not None and ring.total >= \
+                self.predictor.pc.window and label != UNKNOWN:
+            hist = ring.last_labels(self.predictor.pc.window)
+            if (hist >= 0).all():
+                p = self.predictor.predict(hist)
+                predicted = {h: int(v[0]) for h, v in p.items()}
+        return self._new_context(label, predicted, bool(in_trans), mean)
+
     # -- fused batched path ----------------------------------------------------
 
     def _emit_fast(self, mean, var) -> list:
@@ -212,12 +247,12 @@ class KermitMonitor:
     def _emit_chunk(self, mean, var) -> list:
         clf = self.classifier
         pred = self.predictor
-        if (clf is not None and getattr(clf, "params", None) is None) or \
-                (pred is not None and getattr(pred, "params", None) is None):
-            raise TypeError(
-                "the monitor needs a fitted classifier/predictor (the "
-                "reference's per-window fallback for other models belongs "
-                "to the seed path, not ported yet)")
+        if (clf is not None and (getattr(clf, "params", None) is None
+                                 or not hasattr(clf, "fc"))) or \
+                (pred is not None and not hasattr(pred, "params")):
+            # duck-typed classifier/predictor (no fitted tensor params): the
+            # batched step cannot absorb them — per-window seed fallback
+            return [self._emit(m, v) for m, v in zip(mean, var)]
 
         B = mean.shape[0]
         pad = next(b for b in _BUCKETS if b >= B) - B
@@ -237,7 +272,7 @@ class KermitMonitor:
             prev_v = prev_m
 
         ring = self._ring_for(mean[0])
-        if pred is not None:
+        if pred is not None and pred.params is not None:
             pw = int(pred.pc.window)
             if pw > ring.capacity:
                 raise ValueError(

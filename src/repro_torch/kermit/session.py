@@ -2,7 +2,10 @@
 
 Port of ``repro/kermit/session.py``.  ``KermitSession(config, executor=,
 device=None)`` builds every phase on one device — CUDA unless the caller
-passes ``device="cpu"``.  Durable sessions (``checkpoint``/``restore``)
+passes ``device="cpu"``.  ``KermitConfig.impl`` picks the fast paths
+(``"auto"``) or the seed paths end to end (``"legacy"``/``"seed"``: the
+per-sample monitor, the seed analyser with the dense ``pairdist`` kernel,
+the per-record WorkloadDB).  Durable sessions (``checkpoint``/``restore``)
 need ``runtime/checkpoint.py``, a later slice (ROADMAP queue A).
 
 Assembles the full loop (paper Fig. 3) from one declarative ``KermitConfig``
@@ -59,11 +62,6 @@ class KermitSession:
         self.config = cfg
         self.device = dev = resolve_device(device)
         fast_monitor, fast_analysis, dbscan_impl = resolve_impl(cfg.impl)
-        if not (fast_monitor and fast_analysis):
-            raise NotImplementedError(
-                f"impl={cfg.impl!r} selects the reference's frozen seed "
-                "paths, which are not ported yet (ROADMAP queue A: "
-                "legacy/seed paths)")
         if dbscan_impl in ("xla", "pallas_interpret") and dev.type == "cuda":
             raise ValueError(
                 f"impl={cfg.impl!r} names a CPU kernel strategy; on the card "

@@ -23,11 +23,12 @@ _BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-# per-kernel flags on top of NVCC_FLAGS: nbr_adjacency's thresholds must
-# be bit-exact, so nvcc may not contract its products and sums into FMAs;
-# flash_attention and ssd_scan are held to a tolerance and keep nvcc's
-# contraction
-KERNEL_FLAGS = {"nbr_adjacency": ("-fmad=false",)}
+# per-kernel flags on top of NVCC_FLAGS: the thresholds of nbr_adjacency
+# and pairdist must be bit-exact (and equal to each other), so nvcc may not
+# contract their products and sums into FMAs; flash_attention and ssd_scan
+# are held to a tolerance and keep nvcc's contraction
+KERNEL_FLAGS = {"nbr_adjacency": ("-fmad=false",),
+                "pairdist": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict = {}                  # (name, symbol) -> bound C function

@@ -10,8 +10,11 @@ the strategy; here the device of the tensor does:
   map to the plain version on the CPU and are refused on the card, where
   the kernel is the only path.
 * ``"ref"`` — the dense oracle; never chosen implicitly.
-* ``"legacy"``, ``"seed"`` — the reference's frozen seed paths, which the
-  port does not carry yet (ROADMAP queue A, "legacy/seed paths").
+* ``"legacy"``, ``"seed"`` — the reference's frozen seed paths.  There
+  they mean interpret-mode Pallas, a CPU strategy; here they resolve like
+  ``"auto"``: a CUDA tensor launches the hand-written kernel (for the seed
+  DBSCAN path, the dense ``pairdist`` kernel), a CPU tensor takes its
+  plain version.
 
 Entry points take ``device=None`` to mean CUDA, and raise when CUDA is
 missing: nothing falls back to the CPU unless the caller asks for it.
@@ -23,7 +26,7 @@ import torch
 IMPLS = ("auto", "fast", "pallas", "pallas_interpret", "xla", "ref",
          "legacy", "seed")
 
-_KERNEL = ("auto", "fast", "pallas")
+_KERNEL = ("auto", "fast", "pallas", "legacy", "seed")
 _CPU_ONLY = ("xla", "pallas_interpret")
 
 
@@ -43,10 +46,6 @@ def resolve(impl: str | None, device) -> str:
     (the dense oracle)."""
     impl = "auto" if impl is None else impl
     dev = torch.device(device)
-    if impl in ("legacy", "seed"):
-        raise NotImplementedError(
-            f"impl={impl!r} selects the reference's frozen seed path, which "
-            "the port does not carry yet (ROADMAP queue A: legacy/seed paths)")
     if impl == "ref":
         return "ref"
     if impl in _KERNEL:

@@ -1,16 +1,23 @@
-"""The fused ε-neighbourhood kernel: per-row neighbour counts and the
-bit-packed adjacency matrix, without an (N, N) float32 matrix.
+"""Tiled pairwise squared distances and the fused ε-neighbourhood kernel
+(per-row neighbour counts + bit-packed adjacency).
 
 Counterpart of ``repro/kernels/pairdist.py``.  KERMIT's workload discovery
-runs DBSCAN over the window history at every analysis, and this is its
-O(N²F) front end:
+runs DBSCAN over the window history at every analysis, and these are its
+O(N²F) front ends:
 
-* ``neighbor_adjacency`` — on a CUDA tensor it launches the hand-written
-  kernel ``csrc/nbr_adjacency.cu`` (which replaces the TPU kernel
-  ``_nbr_kernel``); on a CPU tensor it takes the plain version
-  ``_neighbor_adjacency_plain``, the counterpart of the reference's XLA
-  twin: same blocking, thresholding and bit packing, one (bm, Npad) strip
-  at a time.
+* ``neighbor_adjacency`` — the streaming fast path.  On a CUDA tensor it
+  launches the hand-written kernel ``csrc/nbr_adjacency.cu`` (which
+  replaces the TPU kernel ``_nbr_kernel``); on a CPU tensor it takes the
+  plain version ``_neighbor_adjacency_plain``, the counterpart of the
+  reference's XLA twin: same blocking, thresholding and bit packing, one
+  (bm, Npad) strip at a time.  No (N, N) float32 matrix.
+* ``pairdist`` — the dense (N, N) float32 matrix of the seed (legacy)
+  DBSCAN path.  On a CUDA tensor it launches ``csrc/pairdist.cu`` (which
+  replaces the TPU kernel ``_kernel``); on a CPU tensor it takes the plain
+  version ``_pairdist_plain``.  Both compute each entry with the
+  arithmetic of their streaming counterpart, so ``pairdist(x) <= ε²`` is
+  the adjacency ``neighbor_adjacency`` packs, bit for bit, on either
+  device.
 * ``ref_*`` — dense oracles.
 
 Bit layout: adjacency column j lives in byte j // 8, bit j % 8 (LSB
@@ -27,9 +34,11 @@ import torch
 
 from repro_torch.kernels import cuda_build, dispatch
 
-# launches of the CUDA kernel; the wrapper adds one per launch and nothing
-# else touches it except callers resetting it to 0
+# launches of the CUDA kernels (``LAUNCHES``: nbr_adjacency.cu,
+# ``DENSE_LAUNCHES``: pairdist.cu); each wrapper adds one per launch and
+# nothing else touches them except callers resetting them to 0
 LAUNCHES = 0
+DENSE_LAUNCHES = 0
 
 
 def ref_pairdist(x):
@@ -60,6 +69,85 @@ def block_rows(n: int, block: int) -> int:
     rounded down to a multiple of 8 (at least 8)."""
     bm = min(block, max(8, -(-n // 8) * 8))
     return max(8, bm - bm % 8)
+
+
+_FP = (16, 32, 64)     # feature widths the kernels are instantiated for
+
+
+# -- dense pairdist (the seed DBSCAN path) ------------------------------------
+
+
+def _pairdist_plain(x, *, block: int = 128):
+    """Plain PyTorch version of the dense kernel: the reference's tile grid
+    (``bm = min(block, N)``, N zero-padded to a multiple of bm, the result
+    cut to (N, N)), walked one (bm, Npad) strip of tiles at a time.  Each
+    entry is ``max(xx + yyᵀ - 2·xy, 0)`` in float32 with the streaming plain
+    version's operations, so its ε-threshold is that version's adjacency."""
+    n, f = x.shape
+    x = x.to(torch.float32)
+    if n == 0:
+        return x.new_zeros((0, 0))
+    bm = min(block, n)
+    npad = (-n) % bm
+    if npad:
+        x = torch.cat([x, x.new_zeros((npad, f))])
+    np_ = x.shape[0]
+    yy = torch.sum(x * x, dim=1)
+    out = torch.empty((np_, np_), dtype=torch.float32, device=x.device)
+    for r0 in range(0, np_, bm):
+        xb = x[r0:r0 + bm]
+        xx = torch.sum(xb * xb, dim=1, keepdim=True)
+        out[r0:r0 + bm] = torch.clamp_min(xx + yy[None, :] - 2.0 * (xb @ x.T),
+                                          0.0)
+    return out[:n, :n]
+
+
+# pairdist(x, n, fp, out, stream)
+_DENSE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _pairdist_cuda(x):
+    """Launch ``csrc/pairdist.cu`` on the current stream.  Any float dtype
+    is cast to float32, as the TPU kernel casts its tiles.  The kernel's
+    own 64 × 64 tiles give the entries any tile grid gives."""
+    global DENSE_LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
+    if x.dim() != 2 or not x.is_floating_point():
+        raise ValueError(f"expected float x of shape (N, F), got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    n, f = x.shape
+    fp = next((w for w in _FP if f <= w), None)
+    if fp is None or f == 0:
+        raise ValueError(f"the CUDA kernel takes 1 <= F <= {_FP[-1]}, got {f}")
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    if f != fp or x.dtype != torch.float32 or not x.is_contiguous():
+        xp = torch.zeros((n, fp), dtype=torch.float32, device=x.device)
+        xp[:, :f] = x
+        x = xp
+    fn = cuda_build.function("pairdist", "pairdist", _DENSE_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), n, fp, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pairdist launch failed: CUDA error {err}")
+    DENSE_LAUNCHES += 1
+    return out
+
+
+def pairdist(x, *, block: int = 128, impl: str = "legacy"):
+    """(N, F) -> (N, N) float32 squared distances: the CUDA kernel on a
+    CUDA tensor, its plain version on a CPU tensor (``impl`` is checked
+    against the device by ``dispatch.resolve``)."""
+    if dispatch.resolve(impl, x.device) == "cuda":
+        return _pairdist_cuda(x)
+    return _pairdist_plain(x, block=block)
+
+
+# -- fused streaming ε-neighbourhood kernel -----------------------------------
 
 
 def _bit_positions(device):
@@ -106,7 +194,6 @@ def _neighbor_adjacency_plain(x, *, eps_sq: float, block: int):
     return counts, packed
 
 
-_FP = (16, 32, 64)     # feature widths the kernel is instantiated for
 # nbr_adjacency(x, n, npad, fp, eps_sq, counts, packed, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,

@@ -73,5 +73,5 @@ def test_tensor_input_keeps_its_device_and_empty_input():
     np.testing.assert_array_equal(P.dbscan(x, 0.9, 4),
                                   J.dbscan(x.numpy(), 0.9, 4))
     assert P.dbscan(np.zeros((0, 4), np.float32), 0.9, device="cpu").size == 0
-    with pytest.raises(NotImplementedError):
-        P.dbscan(x, 0.9, 4, impl="legacy")
+    np.testing.assert_array_equal(P.dbscan(x, 0.9, 4, impl="legacy"),
+                                  J.dbscan(x.numpy(), 0.9, 4, impl="legacy"))

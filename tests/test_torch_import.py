@@ -31,6 +31,24 @@ from repro_torch.core.dbscan import dbscan
 x = np.concatenate([np.zeros((20, 16)), np.ones((20, 16)) * 5]).astype("f4")
 labels = dbscan(x, eps=0.5, min_pts=3, device="cpu")
 assert sorted(set(labels.tolist())) == [0, 1], labels
+legacy = dbscan(x, eps=0.5, min_pts=3, impl="legacy", device="cpu")
+assert (legacy == labels).all(), legacy
+
+import warnings
+from repro_torch.core import AutonomicManager
+from repro_torch.kermit import (AnalysisConfig, KermitConfig, KermitSession,
+                                MonitorConfig, SimulatorExecutor)
+ex = SimulatorExecutor([("dense_train", 4), ("decode_serve", 4)],
+                       window_size=8, device="cpu")
+cfg = KermitConfig(monitor=MonitorConfig(window_size=8),
+                   analysis=AnalysisConfig(interval=5), impl="legacy")
+with KermitSession(cfg, executor=ex, device="cpu") as s:
+    s.run()
+    assert s.summary()["windows"] == len(ex.samples) // 8
+    assert any(e.kind == "analysis" for e in s.events)
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    AutonomicManager(fast_analysis=False, device="cpu").close()
 
 from repro_torch.configs.base import Tunables
 from repro_torch.kermit import ServeEngine
@@ -63,6 +81,15 @@ SSM_SLICE = [
     "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
     "repro_torch.models.ssm_lm",
 ]
+# modules of the seed-path slice (the dense kernel lives in
+# kernels.pairdist, the seed paths in the existing core modules)
+SEED_SLICE = [
+    "repro_torch.core.autonomic", "repro_torch.kernels.pairdist",
+    "repro_torch.kernels.dispatch", "repro_torch.core.dbscan",
+    "repro_torch.core.knowledge", "repro_torch.core.forest",
+    "repro_torch.core.lstm", "repro_torch.core.monitor",
+    "repro_torch.core.analyser", "repro_torch.kermit.session",
+]
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -74,6 +101,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert int(count) == len(walked) >= 40          # every module was walked
     assert set(SERVING_SLICE) <= set(walked)
     assert set(SSM_SLICE) <= set(walked)
+    assert set(SEED_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(

@@ -104,5 +104,9 @@ def test_workloads_json_moves_both_ways(tmp_path):
     _same_store(back, port)
     assert JDB(tmp_path / "zones").labels() == []          # fresh root
     assert PDB(tmp_path / "zones2", device="cpu").labels() == []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PDB(None, impl="legacy", device="cpu")
+    legacy = PDB(None, impl="legacy", device="cpu")
+    assert legacy.load(tmp_path / "ref.json")
+    _same_store(legacy, ref)
+    for c in chars[:6]:
+        assert legacy.find_match(c) == ref.find_match(c, impl="legacy") \
+            == legacy.find_match(c, impl="auto")

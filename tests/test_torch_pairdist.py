@@ -90,9 +90,9 @@ def test_dispatch_follows_the_device():
         with pytest.raises(ValueError):
             dispatch.resolve(impl, cuda)
     assert dispatch.resolve("ref", cpu) == "ref"
-    for impl in ("legacy", "seed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dispatch.resolve(impl, cpu)
+    for impl in ("legacy", "seed"):          # the seed path's dense kernel
+        assert dispatch.resolve(impl, cpu) == "plain"
+        assert dispatch.resolve(impl, cuda) == "cuda"
     with pytest.raises(ValueError):
         dispatch.resolve("nope", cpu)
 

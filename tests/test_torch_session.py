@@ -146,8 +146,11 @@ def test_explorer_over_simulator_matches_reference(search):
 
 def test_deferred_paths_raise():
     ex = SimulatorExecutor(QUICKSTART, window_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KermitSession(KermitConfig(impl="legacy"), executor=ex, device="cpu")
+    for impl in ("legacy", "seed"):         # ported: the seed components
+        s = KermitSession(KermitConfig(impl=impl), executor=ex, device="cpu")
+        assert not (s.monitor.fast or s.analyser.fast)
+        assert (s.analyser.dbscan_impl, s.db.impl) == ("legacy", "legacy")
+        s.close()
     s = KermitSession(KermitConfig(), executor=ex, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         s.checkpoint("x.npz")
