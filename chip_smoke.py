@@ -4,8 +4,10 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Builds the hand-written CUDA kernels from ``src/repro_torch`` on first use
-(one nvcc per source, started together, sm_90a), then runs, each phase
-printing JSON lines and any failure raising (exit code != 0):
+(one nvcc per source, started together, sm_90a; ptxas's registers and
+spills per instantiation and the HGMMA/HMMA count of each kernel's SASS,
+or the wgmma/mma.sync count of its PTX without cuobjdump), then runs, each phase printing JSON lines and any failure
+raising (exit code != 0):
 
 1. ``device``        — torch/CUDA versions; the card must be there.
 2. ``kernel_nbr``    — the ε-neighbour kernel against its plain PyTorch
@@ -14,15 +16,17 @@ printing JSON lines and any failure raising (exit code != 0):
                        squared distance lies within 1e-6·ε² of ε² (counted
                        and printed); DBSCAN labels equal; times.
 3. ``kernel_flash``  — the GQA flash-attention kernel against its plain
-                       version: the reference's sweep in fp32 and bf16,
-                       qwen2-1.5b's serving and long shapes, a gemma2 case,
-                       zamba2-7b's shared block (d = 112); times beside
-                       SDPA and the bound.
+                       version: the reference's sweep in fp32 (CUDA-core
+                       kernel) and bf16 (wgmma kernel), qwen2-1.5b's
+                       serving and long shapes, a gemma2 case, zamba2-7b's
+                       shared block (d = 112); times and device times
+                       beside SDPA's and the bound.
 4. ``kernel_ssd``    — the SSD chunked-scan kernel against its plain
-                       version: the reference's sweep in fp32 and bf16,
-                       mamba2-1.3b's serving shapes, S = 2048 and 8192 in
-                       chunks of 256, a zamba2-7b shape; times beside the
-                       bound.
+                       version: the reference's sweep in fp32 (CUDA-core
+                       kernel) and bf16 (mma.sync kernel), mamba2-1.3b's
+                       serving shapes, S = 2048 and 8192 in chunks of 256,
+                       a zamba2-7b shape; times and device times beside the
+                       tensor-core and fp32 bounds.
 5. ``kernel_pairdist`` — the dense pairwise-distance kernel against its
                        plain version: the reference's sweep and window
                        means at N = 20 ... 16384, every entry within
@@ -63,7 +67,8 @@ of the seed paths (and the ε-neighbour kernel never there, the dense
 kernel never on the fast paths), the attention kernel once per attention layer of every
 prefill (28 × serve calls for qwen2, 13 per zamba2 prefill), the SSD
 kernel once per SSD layer of every prefill (48 × serve calls for mamba2,
-81 per zamba2 prefill).  The inputs the main path gave each kernel are
+81 per zamba2 prefill), every one of those bf16 launches on the
+tensor-core kernels (the per-dtype counters).  The inputs the main path gave each kernel are
 then run through the kernel and its plain version again and held to the
 same parity.  Then one ``{"kernels": [...]}`` line, the card's name and
 power limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
@@ -234,15 +239,54 @@ def time_kernel(x, eps: float, block: int = 128) -> dict:
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
 
 
+def short_name(mangled: str) -> str:
+    """``flash_fwd_wgmma<128>`` from its mangled name (enough to tell the
+    instantiations apart)."""
+    for kernel in ("flash_fwd_wgmma", "flash_fwd_kernel", "ssd_fwd_mma",
+                   "ssd_fwd_kernel", "nbr_adjacency", "pairdist"):
+        if kernel in mangled:
+            args = mangled.split(kernel, 1)[1]
+            return kernel + "<" + ",".join(
+                a for a in args.replace("E", " ").replace("Li", " ").split()
+                if a.isdigit()) + ">"
+    return mangled
+
+
 def phase_build() -> None:
-    """Build the four kernels, one nvcc each, started together."""
+    """Build the four kernels, one nvcc each, started together; print
+    ptxas's registers, shared memory and spills per instantiation, and
+    the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
+    kernel's SASS, or their PTX names where the toolkit has no cuobjdump;
+    a bf16 kernel without them fails the phase."""
     t0 = time.perf_counter()
     cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan",
                      "pairdist")
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in cuda_build.BUILD_LOGS.items()}
-    emit("kernel_build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    seconds = time.perf_counter() - t0
+    ptxas = {}
+    for name, log in cuda_build.BUILD_LOGS.items():
+        rows, fn = {}, None
+        for ln in log.splitlines():
+            if "Function properties for" in ln:
+                fn = short_name(ln.split("for", 1)[1].strip())
+            elif fn and ("registers" in ln or "spill" in ln):
+                rows.setdefault(fn, []).append(ln.replace(
+                    "ptxas info    :", "").strip())
+        ptxas[name] = {k: "; ".join(v) for k, v in rows.items()}
+    # the tensor-core instructions of each bf16 kernel: HGMMA (wgmma) and
+    # HMMA (mma.sync) in its SASS, or, without cuobjdump, their PTX names
+    found, seen_in = {}, {}
+    for name, kernel, op, ptx_op in (
+            ("flash_attention", "flash_fwd_wgmma", "HGMMA", "wgmma.mma_async"),
+            ("ssd_scan", "ssd_fwd_mma", "HMMA", "mma.sync")):
+        counts, key, seen_in[name] = cuda_build.sass_counts(name), op, "sass"
+        if counts is None:
+            counts, key, seen_in[name] = (cuda_build.ptx_counts(name), ptx_op,
+                                          "ptx")
+        found[name] = {short_name(k): v for k, v in counts.items()}
+        got = [v[key] for k, v in found[name].items() if kernel in k]
+        assert got and min(got) > 0, (name, key, found[name])
+    emit("kernel_build", seconds=seconds, ptxas=ptxas, tensor_core=found,
+         tensor_core_seen_in=seen_in)
 
 
 def phase_kernel(dev) -> None:
@@ -732,10 +776,11 @@ QWEN2_SHAPES = ((2, 16), (2, 48), (4, 16), (4, 48), (8, 16), (8, 48),
 
 def flash_tol(dtype) -> tuple[float, float]:
     """(atol, rtol) for |kernel − plain| <= atol + rtol·|plain|.  fp32: the
-    reference's 2e-5.  bf16 outputs: kernel and plain both compute in fp32
-    and differ only in sum order before the final rounding, which moves a
-    value by at most one bf16 step, 2^-7 of it; atol 1e-3 covers values
-    near 0."""
+    reference's 2e-5.  bf16 outputs: the tensor-core kernel's products are
+    exact (bf16 in, fp32 sums) and its P enters as hi + lo bf16 (~2^-17
+    of p), so kernel and plain differ by their sum order and the final
+    rounding, at most one bf16 step, 2^-7 of a value; atol 1e-3 covers
+    values near 0."""
     return (2e-5, 2e-5) if dtype == torch.float32 else (1e-3, 2 ** -7)
 
 
@@ -775,16 +820,35 @@ def flash_bound(B, S, H, K, d, elem=2) -> dict:
             "flops": flops, "bytes": bytes_}
 
 
+def device_ms_per_call(fn, calls: int = 20) -> float | None:
+    """Device time of one call of ``fn``: the profiler's kernel time over
+    ``calls`` calls, divided by the launches of the kernel it saw most
+    often (each call launches it once; the profiler drops some)."""
+    per = {}
+    device_profile(lambda: [fn() for _ in range(calls)], per)
+    if not per:
+        return None
+    return sum(t for _, t in per.values()) / max(n for n, _ in per.values())
+
+
 def time_flash(dev, B, S, heads=QWEN2) -> dict:
     q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=S, **heads)
     reps = max(3, min(200, int(2e9 / (S * S * B))))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kernel():
+        return FA._flash_fwd_cuda(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
     rec = {"B": B, "S": S,
-           "ms": time_ms(lambda: FA._flash_fwd_cuda(q, k, v), reps),
+           "ms": time_ms(kernel, reps),
            "plain_ms": time_ms(lambda: FA._flash_fwd_plain(q, k, v),
                                max(1, reps // 20), groups=3),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True, enable_gqa=True), reps)}
+           "library_ms": time_ms(library, reps),
+           "device_ms": device_ms_per_call(kernel),
+           "library_device_ms": device_ms_per_call(library)}
     rec.update(flash_bound(B, S, **heads))
     return rec
 
@@ -845,8 +909,10 @@ SSD_SHAPES = ((2, 16, 16), (2, 48, 16), (4, 16, 16), (4, 48, 16),
 
 # (atol, rtol) for |kernel − plain| <= atol + rtol·|plain|, y and state
 # alike: the reference's own bound between its kernel and ``ssd_chunked``
-# in fp32.  Both versions read the same values (bf16 inputs upcast
-# exactly) and compute in fp32, so bf16 inputs are held to it too.
+# in fp32.  bf16 inputs are held to it too: the tensor-core kernel's
+# products of x, B, C are exact, and its three fp32 operands enter as
+# hi + lo bf16 pairs (~2^-17 of a value), while the plain version computes
+# in fp32.
 SSD_TOL = (1e-4, 1e-4)
 
 
@@ -885,16 +951,21 @@ def ssd_bound(B, S, H, P, G, N, Q, elem=2) -> dict:
     """Least time for the scan on an H100: x, B, C (``elem`` bytes) and dt
     read once, y and the state (fp32) written once; per chunk 2·Q²·N
     flops per group for C·Bᵀ, Q(Q+1)/2·(2P + 3) per head for the masked
-    scores times x, 4·Q·N·P per head for the state read and update,
-    against the fp32 CUDA-core peak."""
+    scores times x, 4·Q·N·P per head for the state read and update.
+    ``bound_ms`` against the bf16 tensor-core peak (the hi + lo split's
+    extra products not counted), ``bound_fp32_ms`` against the fp32
+    CUDA-core peak."""
     nc = S // Q
     flops = B * nc * (G * 2 * Q * Q * N
                       + H * (Q * (Q + 1) / 2 * (2 * P + 3) + 4 * Q * N * P))
     bytes_ = (elem * (B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
               + 4 * H + 4 * B * S * H * P + 4 * B * H * N * P)
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    t_fp32 = flops / PEAK_FP32_FLOPS
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_fp32_ms": max(t_bytes, t_fp32) * 1e3,
+            "bound_fp32_by": "bytes" if t_bytes > t_fp32 else "operations",
             "flops": flops, "bytes": bytes_}
 
 
@@ -902,10 +973,18 @@ def time_ssd(dev, B, S, Q, widths) -> dict:
     args = ssd_inputs(dev, B, S, dtype=torch.bfloat16, seed=S, **widths)
     reps = max(3, min(200, int(4e6 / (B * S * Q))))
     rec = {"B": B, "S": S, "chunk": Q,
+           "grid": dict(zip(("heads_per_block", "p_columns_per_block"),
+                            SSD.mma_grid(B, S, widths["H"], widths["P"],
+                                         widths["G"], widths["N"], Q))),
            "ms": time_ms(lambda: SSD._ssd_fwd_cuda(*args, chunk=Q), reps),
            "plain_ms": time_ms(lambda: SSD._ssd_fwd_plain(*args, chunk=Q),
                                max(1, reps // 20), groups=3),
-           "library_ms": None}
+           "device_ms": device_ms_per_call(
+               lambda: SSD._ssd_fwd_cuda(*args, chunk=Q)),
+           "library_ms": None, "library_device_ms": None}
+    H, P = widths["H"], widths["P"]
+    R, PS = rec["grid"].values()
+    rec["grid"]["blocks"] = B * (H // R) * (P // PS)
     rec.update(ssd_bound(B, S, Q=Q, **widths))
     return rec
 
@@ -943,6 +1022,19 @@ SSM_INITIAL = Tunables(attn_impl="pallas", serve_batch=8, cache_len=64,
                        ssm_chunk=SSD_CHUNK)
 SSM_SPACE = {"serve_batch": [2, 4, 8], "ssm_chunk": [SSD_CHUNK]}
 HYBRID_TUN = Tunables(attn_impl="pallas", cache_len=64, ssm_chunk=SSD_CHUNK)
+
+def summary(rec: dict) -> dict:
+    """The numbers of one timed shape that the kernels line carries."""
+    return {k: rec.get(k) for k in ("ms", "device_ms", "library_ms",
+                                     "library_device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "grid")
+            if k in rec}
+
+
+def by_dtype(*runs: dict, name: str) -> dict:
+    """Launches of kernel ``name`` per dtype over main-path runs."""
+    return {dt: sum(r["by_dtype"][name][dt] for r in runs)
+            for dt in ("bfloat16", "float32")}
 
 
 def serve_config(initial: Tunables, space: dict) -> KermitConfig:
@@ -999,11 +1091,24 @@ def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
 
 def reset_counters() -> None:
     P.LAUNCHES = P.DENSE_LAUNCHES = FA.LAUNCHES = SSD.LAUNCHES = 0
+    FA.LAUNCHES_BY_DTYPE = dict.fromkeys(FA.LAUNCHES_BY_DTYPE, 0)
+    SSD.LAUNCHES_BY_DTYPE = dict.fromkeys(SSD.LAUNCHES_BY_DTYPE, 0)
 
 
 def counters() -> dict:
     return {"nbr_adjacency": P.LAUNCHES, "flash_attention": FA.LAUNCHES,
-            "ssd_scan": SSD.LAUNCHES, "pairdist": P.DENSE_LAUNCHES}
+            "ssd_scan": SSD.LAUNCHES, "pairdist": P.DENSE_LAUNCHES,
+            "by_dtype": {"flash_attention": dict(FA.LAUNCHES_BY_DTYPE),
+                         "ssd_scan": dict(SSD.LAUNCHES_BY_DTYPE)}}
+
+
+def assert_tensor_core_route(launches: dict) -> None:
+    """Every launch of flash and SSD in a bf16 main-path run took the
+    tensor-core kernel (the bf16 instantiation)."""
+    for name in ("flash_attention", "ssd_scan"):
+        by = launches["by_dtype"][name]
+        assert by["bfloat16"] == launches[name] and by["float32"] == 0, (
+            name, by, launches[name])
 
 
 def check_recorded(phase: str, name: str, recorded: list) -> list:
@@ -1067,6 +1172,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     for name in ("flash_attention", "ssd_scan"):
         assert launches[name] == per_call.get(name, 0) * calls, (
             name, launches[name], calls)
+    assert_tensor_core_route(launches)
     nbr_launches = launches["nbr_adjacency"]
     assert nbr_launches == analyses == len(seen) > 0, (nbr_launches, analyses)
     assert launches["pairdist"] == 0, launches
@@ -1199,6 +1305,7 @@ def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
         launches = counters()
     for name, n in per_call.items():
         assert launches[name] == n * len(reports), (name, launches)
+    assert_tensor_core_route(launches)
     parity = {}
     t0 = time.perf_counter()
     for name, n in per_call.items():
@@ -1213,8 +1320,8 @@ def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
                  "decode_s_per_step": r.decode_s / max(r.steps, 1),
                  "finite": bool(np.isfinite(r.generated).all())}
                 for r in reports])
-    dev_ms = profile_serve(eng, HYBRID_TUN, {"flash": "flash_fwd_kernel",
-                                             "ssd": "ssd_fwd_kernel"})
+    dev_ms = profile_serve(eng, HYBRID_TUN, {"flash": "flash_fwd_wgmma",
+                                             "ssd": "ssd_fwd_mma"})
     return {"launches": launches, "parity": parity, "device_ms": dev_ms}
 
 
@@ -1292,7 +1399,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serving_parity(dev, eng, "serving_parity", SERVE_INITIAL)
     flash_dev = profile_serve(eng, SERVE_INITIAL,
-                              {"flash": "flash_fwd_kernel"})["flash"]
+                              {"flash": "flash_fwd_wgmma"})["flash"]
     emit("phase_seconds", of="serving_parity+profile",
          seconds=time.perf_counter() - t0)
     del eng
@@ -1305,7 +1412,7 @@ def main() -> int:
     emit("phase_seconds", of="serving_ssm", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_serving_parity(dev, eng, "serving_ssm_parity", SSM_INITIAL)
-    ssd_dev = profile_serve(eng, SSM_INITIAL, {"ssd": "ssd_fwd_kernel"})["ssd"]
+    ssd_dev = profile_serve(eng, SSM_INITIAL, {"ssd": "ssd_fwd_mma"})["ssd"]
     emit("phase_seconds", of="serving_ssm_parity+profile",
          seconds=time.perf_counter() - t0)
     del eng
@@ -1358,9 +1465,16 @@ def main() -> int:
         "bound_fp32_ms": fl["bound_fp32_ms"],
         "library_ms": fl["library_ms"], "library": "torch.nn.functional."
         "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "library_device_ms": fl["library_device_ms"],
         "shape": {"B": B, "S": S, **QWEN2, "dtype": "bf16"},
         "device_ms": flash_dev[0] if flash_dev else None,
         "device_ms_zamba2": (hybrid["device_ms"]["flash"] or [None])[0],
+        "design": FA.DESIGN,
+        "launches_by_dtype": by_dtype(served["launches"], hybrid["launches"],
+                                      name="flash_attention"),
+        "timed": {("zamba2_B8xS48" if key == "zamba2" else
+                   f"B{key[0]}xS{key[1]}"): summary(rec)
+                  for key, rec in timed.items()},
         "parity": {"main_path_inputs": len(flash_parity)},
         "tolerance": "|kernel - plain| <= 1e-3 + 2^-7·|plain| in bf16 (one "
                      "bf16 step), 2e-5 + 2e-5·|plain| in fp32"}, {
@@ -1370,12 +1484,19 @@ def main() -> int:
         "max_abs_err": max(ssd_parity),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "bound_fp32_ms": sd["bound_fp32_ms"],
         "library_ms": None, "library": "none: no single PyTorch call "
-        "computes the SSD scan",
+        "computes the SSD scan", "library_device_ms": None,
         "shape": {"B": B, "S": S, "chunk": SSD_CHUNK, **MAMBA2,
                   "dtype": "bf16"},
         "device_ms": ssd_dev[0] if ssd_dev else None,
         "device_ms_zamba2": (hybrid["device_ms"]["ssd"] or [None])[0],
+        "design": SSD.DESIGN,
+        "launches_by_dtype": by_dtype(served_ssm["launches"],
+                                      hybrid["launches"], name="ssd_scan"),
+        "timed": {("zamba2_B8xS48" if name == "zamba2-7b" else
+                   f"B{b}xS{s_}"): summary(rec)
+                  for (name, b, s_), rec in timed_ssd.items()},
         "parity": {"main_path_inputs": len(ssd_parity)},
         "tolerance": "|kernel - plain| <= 1e-4 + 1e-4·|plain| for y and the "
                      "state (fp32 outputs, bf16 or fp32 inputs)"}, {

@@ -47,6 +47,61 @@ def _nvcc() -> str:
     return found
 
 
+def _cuda_tool(tool: str) -> str | None:
+    """A CUDA toolkit program beside nvcc, or None where it is missing."""
+    cand = Path(_nvcc()).with_name(tool)
+    return str(cand) if cand.exists() else shutil.which(tool)
+
+
+def sass_counts(name: str, mnemonics=("HGMMA", "HMMA")) -> dict | None:
+    """Per kernel of the built ``csrc/<name>.cu``, how many SASS
+    instructions start with each of ``mnemonics`` (``cuobjdump -sass``):
+    HGMMA is wgmma, HMMA mma.sync.  None where the toolkit has no
+    cuobjdump."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    current = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = dict.fromkeys(mnemonics, 0)
+        elif current is not None:
+            for m in mnemonics:
+                if f" {m}." in line or f" {m} " in line:
+                    counts[current][m] += 1
+    return counts
+
+
+def ptx_counts(name: str, ops=("wgmma.mma_async", "mma.sync")) -> dict:
+    """Per kernel (``.entry``) of ``csrc/<name>.cu`` compiled to PTX with
+    the build's flags, how many lines hold each of ``ops``: the evidence of
+    tensor-core products where the toolkit has no cuobjdump."""
+    src = _SRC_DIR / f"{name}.cu"
+    out = library_path(name).with_suffix(".ptx")
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _flags(name)
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")]
+    flags[flags.index("arch=compute_90a,code=sm_90a")] = \
+        "arch=compute_90a,code=compute_90a"
+    subprocess.run([_nvcc(), *flags, "-ptx", "-o", str(out), str(src)],
+                   capture_output=True, text=True, check=True)
+    counts: dict = {}
+    current = None
+    for line in out.read_text().splitlines():
+        if ".entry " in line:
+            current = line.split(".entry ", 1)[1].split("(", 1)[0].strip()
+            counts[current] = dict.fromkeys(ops, 0)
+        elif current is not None:
+            for op in ops:
+                if op in line:
+                    counts[current][op] += 1
+    return counts
+
+
 def _flags(name: str) -> tuple:
     return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 

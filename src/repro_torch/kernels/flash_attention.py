@@ -5,17 +5,18 @@ Counterpart of ``repro/kernels/flash_attention.py``.  Every prefill on the
 
 * on a CUDA tensor ``flash_attention`` launches the hand-written kernel
   ``csrc/flash_attention.cu`` (which replaces the TPU kernel ``_kernel``)
-  on the current stream;
+  on the current stream, chosen by dtype: bf16 takes the tensor-core
+  kernel (``wgmma``, K/V through a TMA ring), fp32 the CUDA-core kernel;
 * on a CPU tensor it takes ``_flash_fwd_plain``, the same blocked online
   softmax in plain PyTorch: fp32 throughout, one (bk) KV tile at a time,
   with the reference's padding, masks and update formulas.
 
 ``bq``/``bk`` (default 128, capped at the sequence lengths) set the plain
-version's tiles, as they set the reference's; the CUDA kernel keeps its
-own 64-row query and 32-row KV tiles.  Tiles change only the order of the
-sums, except for a query row that sees no key (a sliding window past the
-last key): the reference averages v over its KV padded to ``bk``, and the
-kernel is told that padded length so it answers the same.
+version's tiles, as they set the reference's; the CUDA kernels keep their
+own (64 query rows; 64 keys in bf16, 32 in fp32).  Tiles change only the
+order of the sums, except for a query row that sees no key (a sliding
+window past the last key): the reference averages v over its KV padded to
+``bk``, and the kernel is told that padded length so it answers the same.
 
 The public entry keeps the reference's quirks: a tensor ``window`` (the
 per-layer scalar the transformer passes) becomes 0, and ``q_pos``/
@@ -36,6 +37,9 @@ NEG = -1e30
 # launches of the CUDA kernel; the wrapper adds one per launch and nothing
 # else touches it except callers resetting it to 0
 LAUNCHES = 0
+# the same launches by input dtype, and the kernel design each dtype takes
+LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
+DESIGN = {"bfloat16": "wgmma", "float32": "cuda_cores"}
 
 HEAD_DIMS = (32, 64, 112, 128, 224)   # head widths the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,16 +142,41 @@ def _check_cuda_inputs(q, k, v):
                          f"({k.shape[2]})")
 
 
+def _tma_operand(t):
+    """``t`` (or, where TMA cannot read it, a contiguous copy) and its
+    (batch, sequence, head) strides in elements.  TMA needs a contiguous
+    last axis, a 16-byte aligned base and strides that are multiples of
+    16 bytes (8 bf16); a size-1 axis, whose stride nothing reads, gets the
+    tensor's span instead."""
+    (s0, s1, s2, s3), (n0, n1, n2, _) = t.stride(), t.shape
+    if (s3 != 1 or t.data_ptr() & 15 or (s0 & 7 and n0 > 1)
+            or (s1 & 7 and n1 > 1) or (s2 & 7 and n2 > 1)):
+        t = t.clone(memory_format=torch.contiguous_format)
+        s0, s1, s2, s3 = t.stride()
+    if n0 > 1 and n1 > 1 and n2 > 1:
+        return t, (s0, s1, s2)
+    st, sh = t.stride(), t.shape
+    span = max(s_ * n for s_, n in zip(st, sh))
+    span += (-span) % 8
+    return t, tuple(s_ if n > 1 else span for s_, n in zip(st[:3], sh[:3]))
+
+
 def _flash_fwd_cuda(q, k, v, kv_len=None, *, causal=True, window=0,
                     softcap=0.0, bk=128):
     """Launch ``csrc/flash_attention.cu`` on the current stream.  Reads
     (B, S, heads, d) through strides (the last axis must be contiguous,
-    else that tensor is copied); writes a new (B, Sq, H, d) tensor.
+    and in bf16 the base and strides 16-byte aligned for TMA, else that
+    tensor is copied); writes a new (B, Sq, H, d) tensor.
     ``bk`` only sets the padded KV length that rows seeing no key divide
     by, as the reference's tile does."""
     global LAUNCHES
     _check_cuda_inputs(q, k, v)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        (q, qs), (k, ks), (v, vs) = (_tma_operand(t) for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        qs, ks, vs = (t.stride()[:3] for t in (q, k, v))
     B, Sq, H, d = q.shape
     Skv, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
@@ -158,7 +187,7 @@ def _flash_fwd_cuda(q, k, v, kv_len=None, *, causal=True, window=0,
     kv_pad = Skv + (-Skv) % bk if bk else 0
     fn = cuda_build.function("flash_attention", "flash_attention_fwd",
                              _ARGTYPES)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    strides = (*qs, *ks, *vs, *out.stride()[:3])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPES[q.dtype], d, B, Sq, Skv, H, K, kv_len, kv_pad,
@@ -168,6 +197,7 @@ def _flash_fwd_cuda(q, k, v, kv_len=None, *, causal=True, window=0,
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(q.dtype)[6:]] += 1
     return out
 
 

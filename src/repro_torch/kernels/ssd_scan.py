@@ -6,7 +6,9 @@ per SSD layer:
 
 * on a CUDA tensor ``ssd`` launches the hand-written kernel
   ``csrc/ssd_scan.cu`` (which replaces the TPU kernel ``_kernel``) on the
-  current stream;
+  current stream, chosen by the dtype of x, Bm, Cm: bf16 takes the
+  tensor-core kernel (``mma.sync``, C·Bᵀ shared by a block's heads), fp32
+  the CUDA-core kernel;
 * on a CPU tensor it takes ``_ssd_fwd_plain``, the TPU kernel's chunk loop
   in plain PyTorch: fp32 throughout, per chunk of Q rows the cumsum of
   dt·A, the masked intra-chunk product, the read of the carried state and
@@ -32,6 +34,9 @@ NEG = -1e30
 # launches of the CUDA kernel; the wrapper adds one per launch and nothing
 # else touches it except callers resetting it to 0
 LAUNCHES = 0
+# the same launches by the dtype of x, and the kernel design each takes
+LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
+DESIGN = {"bfloat16": "mma", "float32": "cuda_cores"}
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # P the kernel is instantiated for
 MAX_STATE = 128                    # largest d_state N it takes
@@ -42,6 +47,8 @@ _SMEM_LIMIT = 227 * 1024
 #              stream)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 11 + [ctypes.c_void_p])
+# ssd_scan_grid(B, S, H, P, G, N, Q, grid)
+_GRID_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
 
 
 def repeat_groups(t, r: int, axis: int):
@@ -102,6 +109,29 @@ def smem_bytes(Q: int, N: int, P: int) -> int:
                 + 2 * Q)
 
 
+def mma_grid(Bsz: int, S: int, H: int, P: int, G: int, N: int, Q: int):
+    """(R, PS) that the bf16 kernel launches with on the current CUDA
+    device: R heads of one group per block and PS columns of P per block,
+    as ``ssd_scan_grid`` in csrc/ssd_scan.cu chooses them."""
+    fn = cuda_build.function("ssd_scan", "ssd_scan_grid", _GRID_ARGTYPES)
+    grid = (ctypes.c_int * 2)()
+    err = fn(Bsz, S, H, P, G, N, Q, grid)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_grid failed: CUDA error {err}")
+    return grid[0], grid[1]
+
+
+def _cp_async_ready(t):
+    """``t`` if 16-byte copies can read it (last axis contiguous, base and
+    the other strides 16-byte aligned: multiples of 8 bf16), else a
+    contiguous copy."""
+    (s0, s1, s2, s3), (n0, n1, n2, _) = t.stride(), t.shape
+    if (s3 != 1 or t.data_ptr() & 15 or (s0 & 7 and n0 > 1)
+            or (s1 & 7 and n1 > 1) or (s2 & 7 and n2 > 1)):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _check_cuda_inputs(x, dt, A, Bm, Cm, Q: int):
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device.type != "cuda":
@@ -133,7 +163,7 @@ def _check_cuda_inputs(x, dt, A, Bm, Cm, Q: int):
                          f"{MAX_STATE}, got {N}")
     if G == 0 or H % G:
         raise ValueError(f"heads ({H}) must be a multiple of groups ({G})")
-    if smem_bytes(Q, N, P) > _SMEM_LIMIT:
+    if x.dtype == torch.float32 and smem_bytes(Q, N, P) > _SMEM_LIMIT:
         raise ValueError(f"chunk {Q} with N = {N}, P = {P} needs "
                          f"{smem_bytes(Q, N, P)} bytes of shared memory, "
                          f"more than a block has")
@@ -141,18 +171,28 @@ def _check_cuda_inputs(x, dt, A, Bm, Cm, Q: int):
 
 def _ssd_fwd_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     """Launch ``csrc/ssd_scan.cu`` on the current stream.  Reads x, dt, Bm
-    and Cm through their strides (the last axis must be contiguous, else
-    that tensor is copied); writes new y and state tensors."""
+    and Cm through their strides (the last axis must be contiguous, and in
+    bf16 x, Bm and Cm 16-byte aligned, else that tensor is copied; Bm and
+    Cm are zero-padded to a multiple of 8 states); writes new y and state
+    tensors."""
     global LAUNCHES
     Bsz, S, H, P = x.shape
     Q = min(chunk, S)
     _check_cuda_inputs(x, dt, A, Bm, Cm, Q)
     if Q <= 0 or S % Q:
         raise ValueError(f"chunk {Q} must divide the sequence length {S}")
-    x, dt, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
-                     for t in (x, dt, Bm, Cm))
-    A = A.contiguous()
     G, N = Bm.shape[2], Bm.shape[3]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if N % 8:
+            Bm, Cm = (torch.nn.functional.pad(t, (0, (-N) % 8))
+                      for t in (Bm, Cm))
+        x, Bm, Cm = (_cp_async_ready(t) for t in (x, Bm, Cm))
+    else:
+        x, Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (x, Bm, Cm))
+    dt = dt if dt.stride(-1) == 1 else dt.contiguous()
+    A = A.contiguous()
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -168,6 +208,7 @@ def _ssd_fwd_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[str(x.dtype)[6:]] += 1
     return y, state
 
 

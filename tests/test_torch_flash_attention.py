@@ -126,6 +126,76 @@ def test_rows_that_see_no_key_average_v_like_the_reference(case):
                                rtol=2e-5, atol=2e-5)
 
 
+def _emulate_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """The bf16 tensor-core kernel's arithmetic (``flash_fwd_wgmma``) in
+    plain PyTorch: 64-key tiles; s = q·k as fp32 sums of exact bf16
+    products; the online softmax in fp32 with the reference's formulas;
+    P enters the P·V product as two bf16 terms, hi = bf16(p) and
+    lo = bf16(p − hi), each times bf16 v summed in fp32; the output
+    rounded once to bf16."""
+    B, Sq, H, d = q.shape
+    K, Skv = k.shape[2], k.shape[1]
+    G = H // K
+    qf = q.float().reshape(B, Sq, K, G, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    q_pos = torch.arange(Sq)[:, None]
+    m = torch.full((B, K, G, Sq, 1), FA.NEG)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, d))
+    for k0 in range(0, Skv, 64):
+        kt, vt = kf[..., k0:k0 + 64, :], vf[..., k0:k0 + 64, :]
+        s = (qf @ kt.transpose(-1, -2)) * d ** -0.5
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+        ok = torch.ones((Sq, kt.shape[-2]), dtype=torch.bool)
+        if causal:
+            ok = ok & (k_pos <= q_pos)
+        if window:
+            ok = ok & (k_pos > q_pos - window)
+        s = torch.where(ok, s, FA.NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        acc = acc * corr + (hi @ vt + lo @ vt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, H, K, d, causal, window, softcap: the sweep's shapes in
+    # bf16, qwen2's serving heads (G = 6), zamba2's d = 112, gemma2's 224
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 8, 1, 32, True, 64, 50.0),
+    (2, 64, 128, 4, 4, 64, False, 0, 0.0),
+    (1, 96, 96, 2, 2, 128, True, 0, 30.0),
+    (2, 48, 48, 12, 2, 128, True, 0, 0.0),
+    (2, 48, 48, 8, 8, 112, True, 0, 0.0),
+    (1, 160, 160, 4, 2, 224, True, 64, 50.0),
+])
+def test_wgmma_rounding_fits_the_bf16_tolerance(case):
+    """The tensor-core kernel's rounding (P as bf16 hi + lo) stays inside
+    the unchanged bf16 tolerance, 1e-3 + 2^-7·|plain|, against the plain
+    version: shown here on the CPU before the kernel runs on the card.
+    (P rounded once to bf16 reaches 1.5-2.3x that tolerance on six of
+    these seven shapes.)"""
+    B, Sq, Skv, H, K, d, causal, win, cap = case
+    rng = np.random.default_rng(Sq + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               .to(torch.bfloat16)
+               for sh in ((B, Sq, H, d), (B, Skv, K, d), (B, Skv, K, d)))
+    got = _emulate_wgmma(q, k, v, causal=causal, window=win, softcap=cap)
+    want = FA._flash_fwd_plain(q, k, v, causal=causal, window=win,
+                               softcap=cap)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-3)
+
+
 def test_cuda_route_refuses_cpu_tensors_and_unsupported_shapes():
     q = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):

@@ -123,6 +123,80 @@ def test_steps_continue_the_chunked_scan():
     torch.testing.assert_close(state, s_all, rtol=1e-4, atol=1e-4)
 
 
+SUB_CHUNK = 64   # rows of the bf16 kernel's sub-chunks (kSub, csrc/ssd_scan.cu)
+
+
+def _split(t):
+    """The hi + lo bf16 pair of an fp32 tensor, as fp32 values."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def _emulate_mma(x, dt, A, Bm, Cm, *, chunk):
+    """The bf16 tensor-core kernel's arithmetic (``ssd_fwd_mma``) in plain
+    PyTorch: each chunk walked in sub-chunks of at most 64 rows, the state
+    passed between them; x, B, C exact in bf16 and every product an fp32
+    sum of exact bf16 products; C·Bᵀ once per group; the three fp32
+    operands — the decay-weighted scores, the carried state and w·x with
+    w = exp(cum_last − cum)·dt — enter their products as bf16 hi + lo,
+    two products each; the carried state itself stays fp32."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    r = H // G
+    x, Bm, Cm = x.float(), Bm.float(), Cm.float()
+    state = torch.zeros((Bsz, H, N, P))
+    ys = []
+    subs = [(c0 + s0, min(SUB_CHUNK, chunk - s0))
+            for c0 in range(0, S, chunk)
+            for s0 in range(0, chunk, SUB_CHUNK)]
+    for c0, Q in subs:
+        tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+        xh = x[:, c0:c0 + Q].permute(0, 2, 1, 3)            # (B, H, Q, P)
+        dtc = dt[:, c0:c0 + Q].transpose(1, 2)               # (B, H, Q)
+        Bc, Cc = Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
+        cum = torch.cumsum(dtc * A[:, None], dim=-1)
+        CB = K.repeat_groups(torch.einsum("bigN,bjgN->bgij", Cc, Bc), r, 1)
+        diff = torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                           K.NEG)
+        hi, lo = _split(CB * torch.exp(diff) * dtc[..., None, :])
+        Ch = K.repeat_groups(Cc, r, 2).permute(0, 2, 1, 3)  # (B, H, Q, N)
+        sh, sl = _split(state)
+        y_inter = (Ch @ sh + Ch @ sl) * torch.exp(cum)[..., None]
+        ys.append((hi @ xh + lo @ xh + y_inter).permute(0, 2, 1, 3))
+        w = torch.exp(cum[..., -1:] - cum) * dtc
+        wh, wl = _split(w[..., None] * xh)
+        Bt = K.repeat_groups(Bc, r, 2).permute(0, 2, 3, 1)  # (B, H, N, Q)
+        state = (state * torch.exp(cum[..., -1])[..., None, None]
+                 + Bt @ wh + Bt @ wl)
+    return torch.cat(ys, dim=1), state
+
+
+@pytest.mark.parametrize("case", [
+    # B, S, H, P, G, N, chunk: the sweep's bf16 case, the card tests'
+    # edge shapes (N = 24, P = 8, Q = 48; Q = S = 12; G = 2 with three
+    # heads a group), mamba2's widths at a small head count, and chunks of
+    # 256 and 200 rows (walked in sub-chunks of 64)
+    (1, 64, 2, 8, 1, 8, 16),
+    (1, 96, 4, 8, 2, 24, 48),
+    (2, 12, 4, 16, 1, 16, 12),
+    (2, 64, 6, 32, 2, 16, 32),
+    (2, 48, 8, 64, 1, 128, 16),
+    (1, 512, 2, 64, 1, 128, 256),
+    (2, 200, 4, 32, 2, 24, 200),
+])
+def test_mma_rounding_fits_the_tolerance(case):
+    """The tensor-core kernel's rounding (hi + lo splits of the fp32
+    operands) stays inside the unchanged 1e-4 + 1e-4·|plain| on y and the
+    state, against the plain version: shown on the CPU before the kernel
+    runs on the card."""
+    B, S, H, P, G, N, chunk = case
+    _, tx = _inputs(B, S, H, P, G, N, "bfloat16", seed=S + N)
+    got_y, got_s = _emulate_mma(*tx, chunk=chunk)
+    want_y, want_s = K._ssd_fwd_plain(*tx, chunk=chunk)
+    torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
 def test_cuda_kernel_refuses_cpu_tensors_and_the_cpu_runs_plain():
     _, tx = _inputs(1, 48, 2, 8, 1, 8, "float32")
     with pytest.raises(ValueError, match="CUDA"):
