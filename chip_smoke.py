@@ -14,7 +14,8 @@ raising (exit code != 0):
                        version (N = 20 ... 16384, two ε): counts and packed
                        bits equal, except bits at pairs whose float64
                        squared distance lies within 1e-6·ε² of ε² (counted
-                       and printed); DBSCAN labels equal; times.
+                       and printed); DBSCAN labels equal; event and device
+                       times at N = 24, 4096 and 16384.
 3. ``kernel_flash``  — the GQA flash-attention kernel against its plain
                        version: the reference's sweep in fp32 (CUDA-core
                        kernel) and bf16 (wgmma kernel), qwen2-1.5b's
@@ -29,10 +30,13 @@ raising (exit code != 0):
                        tensor-core and fp32 bounds.
 5. ``kernel_pairdist`` — the dense pairwise-distance kernel against its
                        plain version: the reference's sweep and window
-                       means at N = 20 ... 16384, every entry within
+                       means at N = 20 ... 16384 (N ≡ 0, 1, 2, 3 mod 4
+                       at 1952–1955), every entry within
                        1e-5·(|x_i|² + |x_j|²) + 1e-6; its ε-threshold
                        equal to the ε-neighbour kernel's bits (N <= 4096);
-                       times beside ``torch.cdist`` and the bound.
+                       event and device times, back to back and with L2
+                       flushed, beside
+                       ``torch.cdist``'s and the bound.
 6. ``quickstart``    — ``examples/quickstart.py``'s config and schedule
                        through ``repro_torch`` on the card, with its asserts.
 7. ``full_history``  — the default config (analysis every 512 windows) over
@@ -74,6 +78,14 @@ same parity.  Then one ``{"kernels": [...]}`` line, the card's name and
 power limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
 line.  On the seed paths every recorded DBSCAN input is also held to the
 fast path: its legacy labels equal ``dbscan(impl="auto")``'s on the card.
+Every ``profile`` line prints, per kernel of the repo, the launches its
+trace shows beside the launches its wrapper counted over the same run
+(``launches_seen``, ``launches_expected``) and whether spin kernels
+around the profiled work show the trace's losses to be a prefix that
+ended before it (``loss_is_a_prefix``).  A kernel missing from a trace
+fails the run, and so does a per-call device time from a trace that
+fails either check; a profile line from such a trace prints its busy
+time and idle share as bounds.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -141,12 +153,14 @@ def emit(phase: str, **kw) -> None:
 
 def nbr_bound_ms(n: int, f: int, block: int = 128) -> tuple[float, str]:
     """Least time for the kernel's work on an H100: each input byte read
-    once and each output byte written once, against 2F + 3 flops per pair
-    of real points (the dot product, then sum, scale and difference);
-    padded rows and columns need no arithmetic."""
+    once and each output byte written once, against 2F + 3 flops per
+    unordered pair of real points, itself included (the dot product, then
+    sum, scale and difference): d2(i, j) and d2(j, i) are one float, so
+    n(n + 1)/2 evaluations decide every bit.  Padded rows and columns need
+    no arithmetic."""
     npad = n + (-n) % P.block_rows(n, block)
     bytes_ = n * f * 4 + npad * 4 + npad * (npad // 8)
-    flops = n * n * (2 * f + 3)
+    flops = n * (n + 1) // 2 * (2 * f + 3)
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S, flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
@@ -227,16 +241,24 @@ def compare_kernel(x, eps: float, min_pts: int = 4, block: int = 128,
 
 
 def time_kernel(x, eps: float, block: int = 128) -> dict:
+    """Event time of back-to-back calls, the device time of one call (the
+    kernel and the memset that zeroes the counts), the plain version's
+    time and the bound."""
     eps_sq = P._eps_sq(eps)
     n, f = x.shape
     reps = max(2, min(200, 2 * 10 ** 8 // max(n * n, 1)))
-    ms = time_ms(lambda: P._neighbor_adjacency_cuda(x, eps_sq=eps_sq,
-                                                    block=block), reps)
+
+    def kernel():
+        return P._neighbor_adjacency_cuda(x, eps_sq=eps_sq, block=block)
+    ms = time_ms(kernel, reps)
+    device = device_ms_per_call(kernel, f"nbr_adjacency N={n} x20",
+                                ("nbr_adjacency_kernel", "Memset"))
     plain = time_ms(lambda: P._neighbor_adjacency_plain(x, eps_sq=eps_sq,
                                                         block=block),
                     max(1, reps // 20), groups=3)
     bound, by = nbr_bound_ms(n, f, block)
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+    return {"n": n, "ms": ms, "device_ms": device, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by}
 
 
 def short_name(mangled: str) -> str:
@@ -247,9 +269,13 @@ def short_name(mangled: str) -> str:
         if kernel in mangled:
             args = mangled.split(kernel, 1)[1]
             return kernel + "<" + ",".join(
-                a for a in args.replace("E", " ").replace("Li", " ").split()
-                if a.isdigit()) + ">"
+                a for a in args.replace("E", " ").replace("Li", " ")
+                .replace("Lb", " ").split() if a.isdigit()) + ">"
     return mangled
+
+
+SASS_MIX = ("FFMA", "FADD", "FMUL", "FSET", "FSETP", "SEL", "LOP3", "LDS",
+            "STS", "STG", "REDG", "SHFL")
 
 
 def phase_build() -> None:
@@ -257,7 +283,8 @@ def phase_build() -> None:
     ptxas's registers, shared memory and spills per instantiation, and
     the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
     kernel's SASS, or their PTX names where the toolkit has no cuobjdump;
-    a bf16 kernel without them fails the phase."""
+    a bf16 kernel without them fails the phase.  Also the static SASS
+    instruction mix of the two CUDA-core pair kernels (``SASS_MIX``)."""
     t0 = time.perf_counter()
     cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan",
                      "pairdist")
@@ -285,19 +312,35 @@ def phase_build() -> None:
         found[name] = {short_name(k): v for k, v in counts.items()}
         got = [v[key] for k, v in found[name].items() if kernel in k]
         assert got and min(got) > 0, (name, key, found[name])
+    # the CUDA-core pair kernels' instruction mix (static SASS counts per
+    # instantiation, "all" every instruction; None without cuobjdump)
+    mix = {name: cuda_build.sass_counts(name, SASS_MIX)
+           for name in ("nbr_adjacency", "pairdist")}
     emit("kernel_build", seconds=seconds, ptxas=ptxas, tensor_core=found,
-         tensor_core_seen_in=seen_in)
+         tensor_core_seen_in=seen_in, sass_mix={
+             name: None if m is None else {short_name(k): v
+                                           for k, v in m.items()}
+             for name, m in mix.items()})
 
 
-def phase_kernel(dev) -> None:
+# window means (F = 16) held to the plain version; ε = 0.35 timed at
+# serving's largest analysis (N = 24) and at N = 4096 and 16384
+NBR_NS = (20, 24, 130, 257, 4096, 16384)
+NBR_TIMED = (24, 4096, 16384)
+
+
+def phase_kernel(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
-    for n in (20, 130, 257, 4096, 16384):
+    timed = {}
+    for n in NBR_NS:
         x = torch.from_numpy(window_means(n, seed=n)).to(dev)
         for eps in (0.35, 0.3):
             rec = compare_kernel(x, eps)
-            if n >= 4096 and eps == 0.35:
+            if n in NBR_TIMED and eps == 0.35:
                 rec.update(time_kernel(x, eps))
+                timed[n] = rec
             emit("kernel_nbr", **rec)
+    return timed
 
 
 @contextlib.contextmanager
@@ -391,35 +434,193 @@ def event_stream(events) -> list:
             for e in events]
 
 
+# a wrapper's launch counter (per design for flash and SSD) -> a substring
+# of its kernel's name in a trace
+TRACE_NAMES = {"nbr_adjacency": "nbr_adjacency_kernel",
+               "pairdist": "pairdist_kernel",
+               "flash_attention/bfloat16": "flash_fwd_wgmma",
+               "flash_attention/float32": "flash_fwd_kernel",
+               "ssd_scan/bfloat16": "ssd_fwd_mma",
+               "ssd_scan/float32": "ssd_fwd_kernel"}
+# seconds of idle the profiler's steps put around ``fn``: after the warm-up
+# step's op and after ``fn``
+PROFILER_PAD_S = 0.05
+# the recorded step's idle before ``fn``, one per attempt: a trace that is
+# not complete is taken again with the next, longer lead
+PROFILE_LEADS_S = (0.05, 0.5, 2.0)
+# spin kernels (torch.cuda._sleep, cycles below; left out of every count
+# and sum) around the recorded window's device work: a long one that holds
+# the stream while the host queues the rest, so they run back to back;
+# LEAD_SENTINELS short ones; a marker, the last before ``fn``; and one
+# after ``fn``.  Told apart by their lengths.
+SPIN_HOLD, SPIN_LEAD, SPIN_MARK, SPIN_CLOSE = 10_000_000, 20_000, 200_000, \
+    1_000_000
+LEAD_SENTINELS = 64
+
+
+def classify_spins(spans: list) -> dict:
+    """The spin kernels of one trace, ``spans`` as (start, end) in us.
+    The shortest seen is a short opening one (at least two must be seen);
+    the others are classified by their length over it.  The trace's losses
+    are shown to be a prefix of the window, ended before ``fn``, when the
+    spins seen read, in order of start, [hold], lead x k (k >= 2), marker,
+    closing, and no lead between the first seen and the marker is missing:
+    each starts within half a lead's length of the end of the one before."""
+    spans = sorted(spans)
+    unit = min((e - b for b, e in spans), default=0.0)
+
+    def kind(b, e):
+        r = (e - b) / unit
+        return ("lead" if r < 3 else "marker" if r < 25 else
+                "closing" if r < 100 else "hold")
+    kinds = [kind(b, e) for b, e in spans] if unit > 0 else []
+    if kinds[:1] == ["hold"]:
+        kinds, spans = kinds[1:], spans[1:]
+    leads = kinds.count("lead")
+    gaps = [spans[i + 1][0] - spans[i][1] for i in range(len(spans) - 2)]
+    prefix = (kinds == ["lead"] * leads + ["marker", "closing"]
+              and leads >= 2 and max(gaps) < unit / 2)
+    return {"sentinels_seen": leads, "marker_seen": "marker" in kinds,
+            "closing_seen": kinds[-1:] == ["closing"],
+            "sentinel_gap_us_max": max(gaps, default=None),
+            "loss_is_a_prefix": bool(prefix)}
+
+
+def wrapper_launches() -> dict:
+    """The wrappers' launch counters, keyed as ``TRACE_NAMES``."""
+    c = counters()
+    out = {"nbr_adjacency": c["nbr_adjacency"], "pairdist": c["pairdist"]}
+    for name in ("flash_attention", "ssd_scan"):
+        out.update({f"{name}/{dt}": n
+                    for dt, n in c["by_dtype"][name].items()})
+    return out
+
+
 def device_profile(fn, per_kernel: dict | None = None) -> dict:
-    """Run ``fn`` once under torch.profiler: wall seconds (profiler on),
-    device-busy seconds (sum of CUDA kernel durations, one stream), the
-    kernels that took most of it, and the host seconds spent reading the
-    trace afterwards; ``per_kernel`` receives every kernel's (launches,
-    ms)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """Run ``fn`` under torch.profiler: wall seconds (profiler on),
+    device-busy seconds (sum of device event durations, one stream; the
+    profiler's step annotations left out), the kernels that took most of
+    it, and the host seconds spent reading the trace afterwards;
+    ``per_kernel`` receives every device event name's (launches, ms).
+
+    ``fn`` runs in the profiler's second step, after a warm-up step, with
+    idle and spin kernels (``classify_spins``; left out of the counts)
+    before and after it inside the recorded step: on the H100 machine,
+    traces lost their first device records (16 of 20 ε-neighbour and 11
+    of 20 dense launches seen when ``fn`` began the trace; later in a long
+    run, the first records even after 50 ms of idle).  A trace is complete
+    when its spins show that any loss was a prefix that ended before the
+    marker, the closing spin is there, and the launches of each repo
+    kernel that it shows (``launches_seen``) equal its wrapper's counter
+    over the same run (``launches_expected``).  When it is not, ``fn``
+    runs again after a longer lead (``PROFILE_LEADS_S``); the last trace's
+    busy time and idle share are printed as measured when it is complete
+    and as ``device_busy_s_lower_bound`` and ``idle_share_upper_bound``
+    when it is not.  A kernel the wrappers launched that is absent from
+    that trace fails the phase."""
+    for attempt, lead in enumerate(PROFILE_LEADS_S, 1):
+        rec, by_name = _profile_once(fn, lead)
+        if rec["trace_complete"]:
+            break
+    absent = [k for k, n in rec["launches_expected"].items()
+              if n and not rec["launches_seen"][k]]
+    if absent:
+        trace = sorted((n, k[:50]) for k, (n, _) in by_name.items())
+        raise AssertionError(f"launched but absent from the trace: {absent} "
+                             f"({rec['launches_expected']} expected, "
+                             f"{rec['launches_seen']} seen; the trace: "
+                             f"{trace})")
+    if per_kernel is not None:
+        per_kernel.update({name: (n, t / 1e3)
+                           for name, (n, t) in by_name.items()})
+    return {**rec, "attempts": attempt}
+
+
+def _profile_once(fn, lead: float) -> tuple[dict, dict]:
+    """One recorded run of ``fn`` after ``lead`` seconds of idle (see
+    ``device_profile``)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
+        prof.step()
+        time.sleep(lead)
+        torch.cuda._sleep(SPIN_HOLD)
+        for _ in range(LEAD_SENTINELS):
+            torch.cuda._sleep(SPIN_LEAD)
+        torch.cuda._sleep(SPIN_MARK)
+        torch.cuda.synchronize()
+        before = wrapper_launches()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        after = wrapper_launches()
+        torch.cuda._sleep(SPIN_CLOSE)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_PAD_S)
         t1 = time.perf_counter()
+        prof.step()                        # ends the recorded step
     by_name: dict = {}
+    spins = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if "spin_kernel" in e.name:
+            spins.append((e.time_range.start, e.time_range.end))
+        elif (e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("ProfilerStep")):
             us = e.time_range.elapsed_us()
             n, t = by_name.get(e.name, (0, 0))
             by_name[e.name] = (n + 1, t + us)
+    expected = {k: after[k] - before[k] for k in TRACE_NAMES}
+    seen = {k: sum(n for name, (n, _) in by_name.items() if sub in name)
+            for k, sub in TRACE_NAMES.items()}
+    keys = [k for k in TRACE_NAMES if expected[k] or seen[k]]
+    sentinels = classify_spins(spins)
+    complete = (sentinels["loss_is_a_prefix"]
+                and all(seen[k] == expected[k] for k in keys))
     busy = sum(t for _, t in by_name.values()) / 1e6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    if per_kernel is not None:
-        per_kernel.update({name: (n, t / 1e3) for name, (n, t) in ranked})
-    return {"wall_s": wall, "device_busy_s": busy,
+    tag = "" if complete else "_lower_bound"
+    return {"wall_s": wall, f"device_busy_s{tag}": busy,
             "trace_processing_s": time.perf_counter() - t1,
-            "idle_share": (1 - busy / wall) if busy else None,
+            ("idle_share" if complete else "idle_share_upper_bound"):
+                (1 - busy / wall) if busy else None,
+            "trace_complete": complete,
+            "launches_seen": {k: seen[k] for k in keys},
+            "launches_expected": {k: expected[k] for k in keys},
             "launches": sum(n for n, _ in by_name.values()),
-            "top": [(name[:60], n, t / 1e3) for name, (n, t) in ranked[:6]]}
+            **sentinels, "lead_s": lead,
+            "top": [(name[:60], n, t / 1e3) for name, (n, t) in ranked[:6]]
+            }, by_name
+
+
+def device_ms_per_call(fn, what: str, names=None, calls: int = 20) -> float:
+    """Device time of one call of ``fn`` over ``calls`` back-to-back calls
+    under the profiler (its line printed as ``what``): the summed durations
+    of every device event whose name holds one of ``names`` — every kernel
+    (and memset) one call of the C entry launches — or, with ``names``
+    None, of every device event, over the calls.  Raises when the trace
+    stays incomplete or shows no launch of ``names[0]``."""
+    per: dict = {}
+
+    def run():
+        for _ in range(calls):
+            fn()
+    prof = device_profile(run, per)
+    emit("profile", what=what, calls=calls, **prof)
+    if not prof["trace_complete"]:
+        raise AssertionError(f"the trace of {what} stayed incomplete after "
+                             f"{prof['attempts']} attempts")
+    if names is None:
+        return sum(t for _, t in per.values()) / calls
+    if not any(names[0] in name for name in per):
+        raise AssertionError(f"{names[0]} absent from the trace of {what}")
+    return sum(t for name, (_, t) in per.items()
+               if any(s in name for s in names)) / calls
 
 
 def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
@@ -517,8 +718,8 @@ def phase_full_history(dev, n_windows: int = 4096, interval: int = 512):
 DENSE_SWEEP = [(64, 8, torch.float32), (200, 16, torch.float32),
                (130, 4, torch.bfloat16)]
 # window means (F = 16); the threshold is checked up to 4096, the last two
-# are timed
-DENSE_NS = (20, 130, 257, 4096, 16384)
+# are timed (and the main path's N = 1955 after legacy_history)
+DENSE_NS = (20, 130, 257, 1952, 1953, 1954, 1955, 4096, 16384)
 
 
 def dense_bound_ms(n: int, f: int, elem: int = 4) -> tuple[float, str]:
@@ -573,14 +774,44 @@ def threshold_matches_nbr(x, d2, eps: float) -> int:
     return int(counts[:n].sum())
 
 
+# written between launches for the L2-flushed times: more than the
+# H100's 50 MB L2, so each launch finds the cache full of other dirty lines
+L2_FLUSH_BYTES = 128 << 20
+
+
 def time_dense(x) -> dict:
+    """The dense kernel: event time of back-to-back calls, device time
+    back to back and with a 128 MiB buffer written before each launch
+    (``device_ms_l2_flushed``: the output cannot stay in L2 between
+    launches); the plain version's time, ``torch.cdist(x, x).square()``'s
+    event and device time, and the bound.  The bound share is read from
+    the flushed time."""
     n, f = x.shape
     reps = max(5, min(200, 2 * 10 ** 8 // max(n * n, 1)))
     bound, by = dense_bound_ms(n, f, x.element_size())
-    return {"ms": time_ms(lambda: P._pairdist_cuda(x), reps),
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=x.device)
+
+    def kernel():
+        return P._pairdist_cuda(x)
+
+    def flushed():
+        flush.zero_()
+        return kernel()
+
+    def library():
+        return torch.cdist(x, x).square()
+    return {"ms": time_ms(kernel, reps),
+            "device_ms": device_ms_per_call(kernel, f"pairdist N={n} x20",
+                                            ("pairdist_kernel",)),
+            "device_ms_l2_flushed": device_ms_per_call(
+                flushed, f"pairdist N={n}, L2 flushed x20",
+                ("pairdist_kernel",)),
             "plain_ms": time_ms(lambda: P._pairdist_plain(x),
                                 max(1, reps // 5), groups=3),
-            "library_ms": time_ms(lambda: torch.cdist(x, x).square(), reps),
+            "library_ms": time_ms(library, reps),
+            "library_device_ms": device_ms_per_call(
+                library, f"torch.cdist N={n} x20"),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -820,17 +1051,6 @@ def flash_bound(B, S, H, K, d, elem=2) -> dict:
             "flops": flops, "bytes": bytes_}
 
 
-def device_ms_per_call(fn, calls: int = 20) -> float | None:
-    """Device time of one call of ``fn``: the profiler's kernel time over
-    ``calls`` calls, divided by the launches of the kernel it saw most
-    often (each call launches it once; the profiler drops some)."""
-    per = {}
-    device_profile(lambda: [fn() for _ in range(calls)], per)
-    if not per:
-        return None
-    return sum(t for _, t in per.values()) / max(n for n, _ in per.values())
-
-
 def time_flash(dev, B, S, heads=QWEN2) -> dict:
     q, k, v = attn_inputs(dev, B, S, S, dtype=torch.bfloat16, seed=S, **heads)
     reps = max(3, min(200, int(2e9 / (S * S * B))))
@@ -847,8 +1067,11 @@ def time_flash(dev, B, S, heads=QWEN2) -> dict:
            "plain_ms": time_ms(lambda: FA._flash_fwd_plain(q, k, v),
                                max(1, reps // 20), groups=3),
            "library_ms": time_ms(library, reps),
-           "device_ms": device_ms_per_call(kernel),
-           "library_device_ms": device_ms_per_call(library)}
+           "device_ms": device_ms_per_call(
+               kernel, f"flash_attention B={B} S={S} d={heads['d']} x20",
+               ("flash_fwd",)),
+           "library_device_ms": device_ms_per_call(
+               library, f"sdpa B={B} S={S} d={heads['d']} x20")}
     rec.update(flash_bound(B, S, **heads))
     return rec
 
@@ -980,7 +1203,9 @@ def time_ssd(dev, B, S, Q, widths) -> dict:
            "plain_ms": time_ms(lambda: SSD._ssd_fwd_plain(*args, chunk=Q),
                                max(1, reps // 20), groups=3),
            "device_ms": device_ms_per_call(
-               lambda: SSD._ssd_fwd_cuda(*args, chunk=Q)),
+               lambda: SSD._ssd_fwd_cuda(*args, chunk=Q),
+               f"ssd_scan B={B} S={S} chunk={Q} H={widths['H']} x20",
+               ("ssd_fwd",)),
            "library_ms": None, "library_device_ms": None}
     H, P = widths["H"], widths["P"]
     R, PS = rec["grid"].values()
@@ -1025,7 +1250,8 @@ HYBRID_TUN = Tunables(attn_impl="pallas", cache_len=64, ssm_chunk=SSD_CHUNK)
 
 def summary(rec: dict) -> dict:
     """The numbers of one timed shape that the kernels line carries."""
-    return {k: rec.get(k) for k in ("ms", "device_ms", "library_ms",
+    return {k: rec.get(k) for k in ("ms", "device_ms", "device_ms_l2_flushed",
+                                     "library_ms",
                                      "library_device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "grid")
             if k in rec}
@@ -1199,6 +1425,12 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
          kernel_launches=launches,
          retunes=[(e.window_id, e.tunables["serve_batch"]) for e in events
                   if e.kind == EventKind.RETUNE.value],
+         # what each decision saw: the session's events but transitions,
+         # and every window's measured p99 and tunables' serve_batch
+         events=[(e.window_id, e.kind, e.label) for e in events
+                 if e.kind != EventKind.TRANSITION.value],
+         window_p99=[(w["window"], w["p99"], w["tunables"]["serve_batch"])
+                     for w in wl],
          changes=changes, first_day_replan=w0,
          p99_day_before_replan=p99_before, p99_day_after_replan=p99_after,
          night=phase_stats("night"), day=phase_stats("day"),
@@ -1344,8 +1576,9 @@ def main() -> int:
          nvidia_smi=smi)
 
     phase_build()
-    timed, timed_ssd, timed_dense = {}, {}, {}
-    for name, fn in (("kernel_nbr", lambda: phase_kernel(dev)),
+    timed, timed_ssd, timed_dense, timed_nbr = {}, {}, {}, {}
+    for name, fn in (("kernel_nbr", lambda: timed_nbr.update(
+                         phase_kernel(dev))),
                      ("kernel_flash", lambda: timed.update(
                          phase_kernel_flash(dev))),
                      ("kernel_ssd", lambda: timed_ssd.update(
@@ -1362,12 +1595,7 @@ def main() -> int:
     # last analysis, over the full ring
     x_main = torch.from_numpy(x_last).to(dev)
     main_shape = time_kernel(x_main, 0.35)
-    eps_sq = P._eps_sq(0.35)
-    prof = device_profile(lambda: [P._neighbor_adjacency_cuda(
-        x_main, eps_sq=eps_sq, block=128) for _ in range(20)])
-    kern = [t / n for name, n, t in prof["top"] if "nbr_adjacency" in name]
-    device_ms = kern[0] if kern else None        # per launch the profiler saw
-    emit("profile", what="nbr_adjacency x20", **prof)
+    timed_nbr[int(x_main.shape[0])] = main_shape
     emit("phase_seconds", of="quickstart+full_history",
          seconds=time.perf_counter() - t0)
 
@@ -1383,11 +1611,7 @@ def main() -> int:
     # analysis, over the full ring
     x_dense = torch.from_numpy(x_dense).to(dev)
     dense_shape = time_dense(x_dense)
-    prof = device_profile(lambda: [P._pairdist_cuda(x_dense)
-                                   for _ in range(20)])
-    kern = [t / n for name, n, t in prof["top"] if "pairdist_kernel" in name]
-    dense_dev_ms = kern[0] if kern else None     # per launch the profiler saw
-    emit("profile", what="pairdist x20", **prof)
+    timed_dense[int(x_dense.shape[0])] = dense_shape
     release_memory()
 
     qwen2 = get_config("qwen2-1.5b")
@@ -1448,7 +1672,10 @@ def main() -> int:
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
-        "n": int(x_main.shape[0]), "device_ms": device_ms,
+        "library": "none: no single PyTorch call computes the counts and "
+        "packed adjacency",
+        "n": int(x_main.shape[0]), "device_ms": main_shape["device_ms"],
+        "timed": {n: summary(rec) for n, rec in sorted(timed_nbr.items())},
         "parity": {"main_path_inputs": len(main),
                    "n": sorted({r["n"] for r in main}),
                    "near_threshold_bits": sum(r["near_threshold_bits"]
@@ -1467,8 +1694,8 @@ def main() -> int:
         "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
         "library_device_ms": fl["library_device_ms"],
         "shape": {"B": B, "S": S, **QWEN2, "dtype": "bf16"},
-        "device_ms": flash_dev[0] if flash_dev else None,
-        "device_ms_zamba2": (hybrid["device_ms"]["flash"] or [None])[0],
+        "device_ms": flash_dev[0],
+        "device_ms_zamba2": hybrid["device_ms"]["flash"][0],
         "design": FA.DESIGN,
         "launches_by_dtype": by_dtype(served["launches"], hybrid["launches"],
                                       name="flash_attention"),
@@ -1489,8 +1716,8 @@ def main() -> int:
         "computes the SSD scan", "library_device_ms": None,
         "shape": {"B": B, "S": S, "chunk": SSD_CHUNK, **MAMBA2,
                   "dtype": "bf16"},
-        "device_ms": ssd_dev[0] if ssd_dev else None,
-        "device_ms_zamba2": (hybrid["device_ms"]["ssd"] or [None])[0],
+        "device_ms": ssd_dev[0],
+        "device_ms_zamba2": hybrid["device_ms"]["ssd"][0],
         "design": SSD.DESIGN,
         "launches_by_dtype": by_dtype(served_ssm["launches"],
                                       hybrid["launches"], name="ssd_scan"),
@@ -1510,8 +1737,11 @@ def main() -> int:
         "bound_by": dense_shape["bound_by"],
         "library_ms": dense_shape["library_ms"],
         "library": "torch.cdist(x, x).square()",
-        "n": int(x_dense.shape[0]), "device_ms": dense_dev_ms,
-        "timed": {n: timed_dense[n] for n in DENSE_NS[-2:]},
+        "library_device_ms": dense_shape["library_device_ms"],
+        "n": int(x_dense.shape[0]), "device_ms": dense_shape["device_ms"],
+        "device_ms_l2_flushed": dense_shape["device_ms_l2_flushed"],
+        "timed": {n: summary(rec) for n, rec in sorted(
+            (k, v) for k, v in timed_dense.items() if k != "max_abs_err")},
         "parity": {"main_path_inputs": len(qleg + hleg),
                    "n": sorted({r["n"] for r in qleg + hleg}),
                    "sweep_max_abs_err": timed_dense["max_abs_err"],

@@ -2,17 +2,19 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``kernels/build/`` (listed in
-``.gitignore``), named by a hash of the source so an edited kernel is
-rebuilt, and loaded with ``ctypes``.  ``build(*names)`` starts one
-``nvcc`` per missing library, all at once, so a caller that needs several
-kernels waits for the slowest build rather than their sum.  Only sources
-in this package are built.  Nothing here runs at import time.
+``.gitignore``), named by a hash of the source and of the ``*.cuh``
+headers beside it, so an edited kernel is rebuilt, and loaded with
+``ctypes``.  ``build(*names)`` starts one ``nvcc`` per missing library,
+all at once, so a caller that needs several kernels waits for the
+slowest build rather than their sum.  Only sources in this package are
+built.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -56,8 +58,9 @@ def _cuda_tool(tool: str) -> str | None:
 def sass_counts(name: str, mnemonics=("HGMMA", "HMMA")) -> dict | None:
     """Per kernel of the built ``csrc/<name>.cu``, how many SASS
     instructions start with each of ``mnemonics`` (``cuobjdump -sass``):
-    HGMMA is wgmma, HMMA mma.sync.  None where the toolkit has no
-    cuobjdump."""
+    HGMMA is wgmma, HMMA mma.sync; under ``"all"`` every instruction of
+    the kernel.  Static counts: each instruction once, whether it runs
+    once, in a loop or never.  None where the toolkit has no cuobjdump."""
     tool = _cuda_tool("cuobjdump")
     if tool is None:
         return None
@@ -68,8 +71,10 @@ def sass_counts(name: str, mnemonics=("HGMMA", "HMMA")) -> dict | None:
     for line in out.splitlines():
         if "Function :" in line:
             current = line.split("Function :", 1)[1].strip()
-            counts[current] = dict.fromkeys(mnemonics, 0)
+            counts[current] = {**dict.fromkeys(mnemonics, 0), "all": 0}
         elif current is not None:
+            if re.match(r"\s*/\*[0-9a-f]{4,}\*/\s", line):
+                counts[current]["all"] += 1
             for m in mnemonics:
                 if f" {m}." in line or f" {m} " in line:
                     counts[current][m] += 1
@@ -107,9 +112,12 @@ def _flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    """The build's path, named by a hash of the source and the flags."""
+    """The build's path, named by a hash of the source, the headers beside
+    it and the flags."""
     src = _SRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

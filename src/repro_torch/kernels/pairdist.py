@@ -22,8 +22,8 @@ O(N²F) front ends:
 
 Bit layout: adjacency column j lives in byte j // 8, bit j % 8 (LSB
 first).  ``_pack_bits``/``unpack_bits`` are the single source of truth for
-it on the PyTorch side; the CUDA kernel writes the same layout from its
-ballot words.
+it on the PyTorch side; the CUDA kernel writes the same layout from the
+bits its threads threshold.
 """
 from __future__ import annotations
 
@@ -110,7 +110,7 @@ _DENSE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 def _pairdist_cuda(x):
     """Launch ``csrc/pairdist.cu`` on the current stream.  Any float dtype
     is cast to float32, as the TPU kernel casts its tiles.  The kernel's
-    own 64 × 64 tiles give the entries any tile grid gives."""
+    own 64 × 128 tiles give the entries any tile grid gives."""
     global DENSE_LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
@@ -124,7 +124,8 @@ def _pairdist_cuda(x):
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    if f != fp or x.dtype != torch.float32 or not x.is_contiguous():
+    if (f != fp or x.dtype != torch.float32 or not x.is_contiguous()
+            or x.data_ptr() % 16):
         xp = torch.zeros((n, fp), dtype=torch.float32, device=x.device)
         xp[:, :f] = x
         x = xp

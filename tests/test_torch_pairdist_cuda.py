@@ -21,11 +21,18 @@ from repro_torch.kernels import pairdist as P
 pytestmark = pytest.mark.cuda
 
 # the reference's sweep (tests/test_kernels.py:14-16, block 64), then
-# simulator-like shapes: F = 16 window means, odd N, F padded to 32 / 64
+# simulator-like shapes: F = 16 window means, odd N, F padded to 32 / 64;
+# N on and off the kernel's 64-row and 128-column tiles, N ≡ 0, 1, 2, 3
+# (mod 4) around the main path's 1955 (rows start 16-byte aligned or 4, 8,
+# 12 bytes after), F = 1
 CASES = [(64, 8, torch.float32), (200, 16, torch.float32),
          (130, 4, torch.bfloat16), (20, 16, torch.float32),
          (257, 16, torch.float32), (1001, 33, torch.float32),
-         (640, 64, torch.float32), (4096, 16, torch.float32)]
+         (640, 64, torch.float32), (4096, 16, torch.float32),
+         (127, 16, torch.float32), (128, 16, torch.float32),
+         (129, 1, torch.float32), (1952, 16, torch.float32),
+         (1953, 16, torch.float32), (1954, 16, torch.float32),
+         (1955, 16, torch.float32)]
 
 
 @pytest.fixture
@@ -93,3 +100,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         P._pairdist_cuda(torch.zeros((8,), device=cuda_device))
     assert P._pairdist_cuda(torch.zeros((0, 4), device=cuda_device)).shape \
         == (0, 0)
+
+
+@pytest.mark.parametrize("n", [127, 1955, 3910])
+def test_threshold_equals_the_nbr_bits_at_exact_ties(cuda_device, n):
+    # points on a grid of quarters: every d2 is exact and a multiple of
+    # 1/16, so ε² taken from the matrix itself (its 2nd percentile) falls on
+    # many pairs; the two kernels must threshold every tie the same way
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.integers(-2, 3, size=(n, 16)) / 4.0).astype(
+        np.float32)).to(cuda_device)
+    d2 = P._pairdist_cuda(x)
+    eps_sq = float(d2.flatten().kthvalue(n * n // 50).values)
+    assert int((d2 == eps_sq).sum()) >= 50
+    counts, packed = P._neighbor_adjacency_cuda(x, eps_sq=eps_sq, block=128)
+    adj = P.unpack_bits(packed[:n], n)
+    assert torch.equal(d2 <= eps_sq, adj)
+    assert torch.equal(adj.sum(1, dtype=torch.int32), counts[:n])
