@@ -63,6 +63,25 @@ raising (exit code != 0):
 13. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
                        few serve calls through both kernels, and a profiled
                        call.
+14. ``training``     — KERMIT tuning a live qwen2-1.5b training job at full
+                       width (bf16, random weights from seed 0): ``Trainer``
+                       + ``KermitSession`` with examples/autonomic_train.py's
+                       session and phase a's shape (B = 8, S = 128),
+                       ``attn_impl="pallas"``, 48 steps (ANALYSIS at window
+                       10, the search at 11); step times, the search's
+                       trials, peak memory per remat policy, a profiled
+                       train step.
+15. ``training_parity`` — one train step on the pallas and the xla route
+                       from the same weights and batch (loss, grad norm,
+                       every gradient leaf); the Functions' input grads
+                       (kernel forward) against autograd through the plain
+                       versions at the training shapes, fp32 and bf16.
+16. ``training_ssm`` — mamba2-1.3b at full width (bf16), phase b's shape
+                       (B = 4, S = 256, chunks of 256), int8 AdamW moments,
+                       6 steps, no session.
+17. ``fault_tolerance`` — examples/fault_tolerance.py's run: checkpoints
+                       every 5 steps, failures at 8 and 17, against an
+                       uninterrupted run.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
@@ -71,8 +90,13 @@ of the seed paths (and the ε-neighbour kernel never there, the dense
 kernel never on the fast paths), the attention kernel once per attention layer of every
 prefill (28 × serve calls for qwen2, 13 per zamba2 prefill), the SSD
 kernel once per SSD layer of every prefill (48 × serve calls for mamba2,
-81 per zamba2 prefill), every one of those bf16 launches on the
-tensor-core kernels (the per-dtype counters).  The inputs the main path gave each kernel are
+81 per zamba2 prefill), and in training once per layer run: each forward
+pass and each remat recompute of a layer (counted, as they start), every
+one of those bf16 launches on the
+tensor-core kernels (the per-dtype counters).  The backward of both is a
+recompute through their plain versions (``attention_xla``,
+``ssd_chunked``) differentiated by autograd, as the reference's
+``custom_vjp``s are; it launches no kernel.  The inputs the main path gave each kernel are
 then run through the kernel and its plain version again and held to the
 same parity.  Then one ``{"kernels": [...]}`` line, the card's name and
 power limit as nvidia-smi reports them, and the final ``{"ok": true, ...}``
@@ -98,6 +122,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -109,7 +134,8 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs.base import Tunables, reduced  # noqa: E402
+from repro_torch.configs.base import (DEFAULT_TUNABLES,  # noqa: E402
+                                      ShapeSpec, Tunables, reduced)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import analyser as A  # noqa: E402
 from repro_torch.core.dbscan import (dbscan,  # noqa: E402
@@ -126,6 +152,13 @@ from repro_torch.kermit import (AnalysisConfig, EventKind,  # noqa: E402
                                 ServeEngine, ServeExecutor, SimulatorExecutor,
                                 TrafficGenerator, run_serving_session)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import ssm_lm as SLM  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.optim.adamw import OptConfig, tree_leaves  # noqa: E402
+from repro_torch.runtime.fault import FailureInjector  # noqa: E402
+from repro_torch.runtime.loop import Trainer  # noqa: E402
+from repro_torch.train.step import (loss_and_grads,  # noqa: E402
+                                    make_train_step)
 
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
@@ -1295,14 +1328,16 @@ KERNELS = {
 def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
     """Record the (args, kwargs) of the first ``n`` launches of kernel
     ``name`` for every distinct (shape, dtype, options) — one prefill's
-    layers — and of the last ``last.maxlen`` launches: references only
-    (the path makes new inputs for every layer and does not modify
-    them)."""
+    layers — and of the last ``last.maxlen`` launches: references only,
+    detached (the path makes new inputs for every layer and does not
+    modify them)."""
     module, attr, key, _ = KERNELS[name]
     real = getattr(module, attr)
 
     def run(*a, **kw):
-        rec = (a, kw)
+        # detached: a training step's inputs would hold its autograd graph
+        rec = (tuple(t.detach() if isinstance(t, torch.Tensor) else t
+                     for t in a), kw)
         recs = first.setdefault(key(a, kw), [])
         if len(recs) < n:
             recs.append(rec)
@@ -1557,6 +1592,370 @@ def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
     return {"launches": launches, "parity": parity, "device_ms": dev_ms}
 
 
+# ---------------------------------------------------------------------------
+# training: KERMIT tuning a live qwen2-1.5b training job
+# ---------------------------------------------------------------------------
+
+# examples/autonomic_train.py: the live search space (:31-35), phase a and
+# phase b (:37-40), the optimizer and the session (:44-49)
+LIVE_SPACE = {"remat": ["dots", "none", "full"], "microbatches": [1, 2, 4],
+              "attn_q_chunk": [64, 128, 256]}
+TRAIN_SHAPE = ShapeSpec("a", 128, 8, "train")
+SSM_TRAIN_SHAPE = ShapeSpec("b", 256, 4, "train")
+TRAIN_OC = OptConfig(lr=1e-3, warmup=5)
+TRAIN_TUN = Tunables(attn_impl="pallas")
+# the session analyses first at window 10 (min_windows 8, every 5
+# windows of 4 steps) and searches at the next: 48 steps, 12 windows
+TRAIN_STEPS = 48
+SSM_TRAIN_STEPS = 6
+# flash at the training shape: qwen2's heads at B = 8, S = 128; SSD at
+# mamba2's phase b, one chunk of 256
+FLASH_TRAIN = (8, 128)
+SSD_TRAIN = (4, 256, 256)
+
+
+def train_session_config() -> KermitConfig:
+    """The example's session, with the run's tunables as the plug-in's
+    default (J^D), as the serving phases do: else its first decision
+    would put the run back on ``attn_impl="auto"``, the xla route."""
+    return KermitConfig(
+        monitor=MonitorConfig(window_size=4),
+        analysis=AnalysisConfig(interval=5, dbscan_eps=0.25),
+        plan=PlanConfig(space=LIVE_SPACE,
+                        default_tunables=TRAIN_TUN.as_dict()))
+
+
+@contextlib.contextmanager
+def count_entries(owner, name: str, counts: collections.Counter):
+    """Count the calls of ``owner.name`` as they start (a recompute that
+    stops early never returns)."""
+    real = getattr(owner, name)
+
+    def run(*a, **kw):
+        counts[name] += 1
+        return real(*a, **kw)
+    setattr(owner, name, run)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def finite_losses(losses) -> bool:
+    return bool(losses) and all(np.isfinite(x) for x in losses)
+
+
+def peak_gb(fn) -> float:
+    """Peak device memory while ``fn`` runs, above what was allocated
+    before it, in GB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def remat_memory(tr, batch) -> dict:
+    """For each remat policy: the peak memory of one forward + backward
+    (loss and every gradient) and of one whole train step, above the live
+    state, at the training shape."""
+    out = {}
+    for remat in ("none", "dots", "full"):
+        tun = tr.tun.replace(remat=remat, microbatches=1)
+        step = make_train_step(tr.cfg, tr.oc, tun, device=tr.device)
+        out[remat] = {
+            "fwd_bwd_gb": peak_gb(lambda: loss_and_grads(
+                tr.state["params"], tr.cfg, batch, tun)),
+            "step_gb": peak_gb(lambda: step(tr.state, batch))}
+    return out
+
+
+def phase_training(dev) -> dict:
+    """KERMIT tuning a live qwen2-1.5b training job at full width (bf16,
+    random weights from seed 0): ``Trainer`` + ``KermitSession`` with
+    examples/autonomic_train.py's session, phase a's shape and
+    ``attn_impl="pallas"``.  Asserts finite losses, every flash launch
+    bf16 (wgmma) and one per layer run (forward passes and remat
+    recomputes, counted), an ANALYSIS with each ε-neighbour launch held
+    to its plain version, no failed trial, and peak memory ordered
+    full <= dots <= none; profiles one train step."""
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    session = KermitSession(train_session_config(), device=dev)
+    tr = Trainer(cfg, TRAIN_SHAPE, TRAIN_OC, TRAIN_TUN, autonomic=session,
+                 seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trials = []
+    real_objective = tr.measured_objective
+
+    def measured_objective(repeats: int = 1):
+        objective = real_objective(repeats)
+
+        def record(tun):
+            cost = objective(tun)
+            trials.append({"remat": tun.remat,
+                           "microbatches": tun.microbatches,
+                           "attn_q_chunk": tun.attn_q_chunk, "s": cost})
+            return cost
+        return record
+    tr.measured_objective = measured_objective
+    events, seen, calls = [], [], collections.Counter()
+    first, last = {}, collections.deque(maxlen=cfg.n_layers)
+    session.subscribe(None, events.append)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(dbscan_inputs(seen))
+        stack.enter_context(launch_inputs("flash_attention", first, last,
+                                          cfg.n_layers))
+        stack.enter_context(count_entries(T, "block_apply", calls))
+        stack.enter_context(count_entries(M, "forward", calls))
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = tr.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    analyses = sum(e.kind == "analysis" for e in session.events)
+    layer_runs = calls["block_apply"]
+    assert rep.steps_done == TRAIN_STEPS and finite_losses(rep.losses), rep
+    assert launches["flash_attention"] == layer_runs > 0, (launches,
+                                                           layer_runs)
+    assert layer_runs % cfg.n_layers == 0, layer_runs
+    assert layer_runs >= cfg.n_layers * calls["forward"], (layer_runs, calls)
+    assert_tensor_core_route(launches)
+    assert launches["ssd_scan"] == launches["pairdist"] == 0, launches
+    assert analyses >= 1, [e.kind for e in events]
+    assert launches["nbr_adjacency"] == analyses == len(seen), (launches,
+                                                                 analyses)
+    assert tr.failed_trials == 0 and rep.failed_trials == 0, tr.trial_errors
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tr.pipeline._make(0).items()}
+    memory = remat_memory(tr, batch)
+    fb = {k: v["fwd_bwd_gb"] for k, v in memory.items()}
+    assert fb["full"] <= fb["dots"] <= fb["none"] and fb["full"] < fb["none"], \
+        memory
+    step = make_train_step(cfg, TRAIN_OC, TRAIN_TUN, device=dev)
+    prof = device_profile(lambda: step(tr.state, batch))
+    emit("profile", what=f"train step B={TRAIN_SHAPE.global_batch} "
+         f"S={TRAIN_SHAPE.seq_len} (qwen2-1.5b, bf16, pallas, remat dots)",
+         **prof)
+    emit("training", model=cfg.name, params_init_s=init_s, seconds=seconds,
+         steps=rep.steps_done, step_s=rep.step_times,
+         step_s_median=statistics.median(rep.step_times),
+         loss_first=rep.losses[0], loss_last=rep.losses[-1],
+         forward_passes=calls["forward"], layer_runs=layer_runs,
+         flash_launches_per_step_dots=2 * cfg.n_layers,
+         kernel_launches=launches, analyses=analyses,
+         retunes=[(s, t["remat"], t["microbatches"], t["attn_q_chunk"])
+                  for s, t in rep.retunes],
+         final={k: rep.final_tunables[k] for k in LIVE_SPACE},
+         events=[(e.window_id, e.kind, e.label) for e in events
+                 if e.kind != EventKind.TRANSITION.value],
+         trials=trials, failed_trials=rep.failed_trials,
+         straggler_events=rep.straggler_events,
+         max_memory_allocated_gb=peak, remat_memory_gb=memory,
+         summary=session.summary()["plugin"])
+    session.close()
+    recorded = [r for recs in first.values() for r in recs] + list(last)
+    with torch.no_grad():
+        flash_parity = check_recorded("training", "flash_attention",
+                                      recorded)
+    nbr = check_main_path("training", seen, dev)
+    return {"trainer": tr, "batch": batch, "launches": launches,
+            "parity": flash_parity, "nbr_parity": nbr, "profile": prof}
+
+
+# pallas vs xla train step at bf16: loss and grad norm, relative.  The two
+# routes' attention outputs differ by up to one bf16 step (flash_tol), and
+# that difference runs through 28 layers and the backward.
+TRAIN_TOL = 1e-2
+# each gradient leaf's relative (Frobenius) difference between the routes
+LEAF_TOL = 5e-2
+# the Functions' grads against autograd through the plain versions: both
+# differentiate the same recompute (attention_xla / ssd_chunked) with the
+# same output grads, so they agree to the last bits in fp32 and to one
+# bf16 step in bf16
+GRAD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
+
+
+def rel(a, b) -> float:
+    """|a - b| / |b| over all elements (Frobenius), in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def function_grads(fn, ref, inputs, tol) -> dict:
+    """The Function's forward and input grads (kernel forward on the card)
+    against autograd through its plain version on the same inputs and the
+    same output grads: every grad present, non-zero and within ``tol``
+    (atol, rtol); the forward within the kernel's tolerance is held by
+    ``compare_*``."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    g = torch.Generator(device=out[0].device).manual_seed(7)
+    gouts = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+             for o in out]
+    got = torch.autograd.grad(out, leaves, gouts)
+    leaves_r = [t.detach().requires_grad_() for t in inputs]
+    out_r = ref(*leaves_r)
+    out_r = out_r if isinstance(out_r, tuple) else (out_r,)
+    want = torch.autograd.grad(out_r, leaves_r, gouts)
+    errs = []
+    for a, b in zip(got, want):
+        assert a is not None and bool(a.abs().sum() > 0), "gradient dropped"
+        atol, rtol = tol
+        err = float((a.float() - b.float()).abs().max())
+        if not torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"Function grad differs by {err}")
+        errs.append(err)
+    return {"grad_max_abs_err": errs,
+            "forward_max_abs_err": max(float((o - r).detach().float().abs()
+                                             .max()) for o, r in
+                                       zip(out, out_r))}
+
+
+def phase_training_parity(dev, trained: dict) -> dict:
+    """One train step from the trained weights and phase a's batch on the
+    pallas and the xla route: loss and grad norm within ``TRAIN_TOL``,
+    every gradient leaf non-zero on both and within ``LEAF_TOL`` of the
+    xla route's (relative norm).  Then the Functions' input grads at the
+    training shapes, fp32 and bf16, against autograd through the plain
+    versions."""
+    tr, batch = trained["trainer"], trained["batch"]
+    out = {}
+    grads = {}
+    for impl in ("pallas", "xla"):
+        tun = tr.tun.replace(attn_impl=impl, remat="dots", microbatches=1)
+        metrics = make_train_step(tr.cfg, tr.oc, tun, device=dev)(
+            tr.state, batch)[1]
+        out[impl] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        del metrics
+        grads[impl] = loss_and_grads(tr.state["params"], tr.cfg, batch,
+                                     tun)[2]
+    leaves = {impl: tree_leaves(g) for impl, g in grads.items()}
+    leaf_rel = [rel(a, b) for a, b in zip(leaves["pallas"], leaves["xla"])]
+    zero = [i for i, (a, b) in enumerate(zip(leaves["pallas"],
+                                             leaves["xla"]))
+            if not (bool(a.abs().sum() > 0) and bool(b.abs().sum() > 0))]
+    del grads, leaves
+    release_memory()
+    d = {k: abs(out["pallas"][k] - out["xla"][k]) / abs(out["xla"][k])
+         for k in ("loss", "grad_norm")}
+    assert not zero, f"gradient leaves that are zero: {zero}"
+    assert max(d.values()) <= TRAIN_TOL, (out, d)
+    assert max(leaf_rel) <= LEAF_TOL, leaf_rel
+
+    B, S = FLASH_TRAIN
+    fn = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(dev, B, S, S, dtype=dtype, seed=5, **QWEN2)
+        fn[f"flash_{str(dtype)[6:]}"] = function_grads(
+            lambda a, b, c: FA.flash_attention(a, b, c, causal=True),
+            lambda a, b, c: FA._ref(a, b, c, True, 0, 0.0), (q, k, v),
+            GRAD_TOL[dtype])
+        Bs, Ss, Q = SSD_TRAIN
+        args = ssd_inputs(dev, Bs, Ss, dtype=dtype, seed=6, **MAMBA2)
+        fn[f"ssd_{str(dtype)[6:]}"] = function_grads(
+            lambda *a: SSD.ssd(*a, chunk=Q),
+            lambda *a: SSD._ref(*a, Q), args, GRAD_TOL[dtype])
+    emit("training_parity", model=tr.cfg.name, routes=out,
+         relative_diff=d, tolerance=TRAIN_TOL, grad_leaves=len(leaf_rel),
+         grad_leaf_relative_diff_max=max(leaf_rel),
+         grad_leaf_tolerance=LEAF_TOL, functions=fn,
+         function_grad_tolerance={str(k): v for k, v in GRAD_TOL.items()})
+    return {"routes": out, "relative_diff": d, "functions": fn}
+
+
+def phase_training_ssm(dev) -> dict:
+    """mamba2-1.3b training at full width (bf16, seed 0), phase b's shape,
+    ``attn_impl="pallas"`` with the default ssm_chunk 256 and int8 AdamW
+    moments, no session: finite losses, one SSD launch (bf16, mma.sync)
+    per SSD layer run (forward passes and remat recomputes, counted), each
+    recorded input held to the plain version."""
+    cfg = get_config("mamba2-1.3b")
+    oc = dataclasses.replace(TRAIN_OC, moments_dtype="int8")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, SSM_TRAIN_SHAPE, oc, TRAIN_TUN, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = collections.Counter()
+    first, last = {}, collections.deque(maxlen=cfg.n_layers)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(launch_inputs("ssd_scan", first, last,
+                                          cfg.n_layers))
+        stack.enter_context(count_entries(SLM, "_ssm_block", calls))
+        stack.enter_context(count_entries(M, "forward", calls))
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = tr.run(SSM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    runs = calls["_ssm_block"]
+    moments = {str(tree_leaves(tr.state["opt"]["m"])[0][0].dtype)}
+    assert finite_losses(rep.losses), rep.losses
+    assert launches["ssd_scan"] == runs > 0 and runs % cfg.n_layers == 0, (
+        launches, runs)
+    assert runs >= cfg.n_layers * calls["forward"], (runs, calls)
+    assert launches["flash_attention"] == 0, launches
+    assert_tensor_core_route(launches)
+    assert moments == {"torch.int8"}, moments
+    recorded = [r for recs in first.values() for r in recs] + list(last)
+    with torch.no_grad():
+        parity = check_recorded("training_ssm", "ssd_scan", recorded)
+    emit("training_ssm", model=cfg.name, params_init_s=init_s,
+         seconds=seconds, steps=rep.steps_done, step_s=rep.step_times,
+         losses=rep.losses, forward_passes=calls["forward"],
+         ssd_layer_runs=runs, kernel_launches=launches,
+         moments_dtype=oc.moments_dtype, max_memory_allocated_gb=peak)
+    del tr
+    return {"launches": launches, "parity": parity}
+
+
+# resumed against uninterrupted losses: CUDA may sum with atomics in no
+# fixed order (the card's runs so far were bit-equal all the same)
+FT_TOL = 1e-4
+
+
+def phase_fault_tolerance(dev) -> dict:
+    """examples/fault_tolerance.py on the card: reduced qwen3-14b (2 layers,
+    vocab 256), checkpoints every 5 steps, node failures at steps 8 and
+    17, 25 steps: 2 recoveries, and the steps after the last recovery
+    allclose (``FT_TOL``) to an uninterrupted run's."""
+    cfg = reduced(get_config("qwen3-14b")).replace(n_layers=2, vocab=256)
+    shape = ShapeSpec("ft", 128, 4, "train")
+    oc = OptConfig(lr=1e-3)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rep = Trainer(cfg, shape, oc, DEFAULT_TUNABLES,
+                      ckpt_dir=Path(d) / "a", ckpt_every=5,
+                      injector=FailureInjector(fail_steps=(8, 17)),
+                      device=dev).run(25)
+    base = Trainer(cfg, shape, oc, DEFAULT_TUNABLES, device=dev).run(25)
+    seconds = time.perf_counter() - t0
+    # the run replays from step 15 (the checkpoint before step 17) to 24
+    resumed, want = np.asarray(rep.losses[-10:]), np.asarray(base.losses[15:])
+    err = float(np.max(np.abs(resumed - want) / np.abs(want)))
+    assert rep.steps_done == 25 and rep.failures_recovered == 2, rep
+    assert finite_losses(rep.losses) and len(rep.losses) == 25 + 3 + 2
+    assert np.allclose(resumed, want, rtol=FT_TOL, atol=0), (resumed, want)
+    emit("fault_tolerance", model=f"reduced {cfg.name}", seconds=seconds,
+         steps=rep.steps_done, failures_recovered=rep.failures_recovered,
+         straggler_events=rep.straggler_events,
+         loss_first=rep.losses[0], loss_last=rep.losses[-1],
+         resumed_max_relative_diff=err, tolerance=FT_TOL,
+         bit_equal=bool(np.array_equal(resumed, want)))
+    return {"resumed_max_relative_diff": err}
+
+
 def release_memory() -> None:
     """Return the memory of engines the caller has dropped."""
     gc.collect()
@@ -1645,23 +2044,47 @@ def main() -> int:
     t0 = time.perf_counter()
     hybrid = phase_hybrid(dev)
     emit("phase_seconds", of="hybrid", seconds=time.perf_counter() - t0)
+    release_memory()
 
-    main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"]
+    t0 = time.perf_counter()
+    trained = phase_training(dev)
+    emit("phase_seconds", of="training", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_training_parity(dev, trained)
+    emit("phase_seconds", of="training_parity",
+         seconds=time.perf_counter() - t0)
+    del trained["trainer"], trained["batch"]
+    release_memory()
+    t0 = time.perf_counter()
+    trained_ssm = phase_training_ssm(dev)
+    emit("phase_seconds", of="training_ssm",
+         seconds=time.perf_counter() - t0)
+    release_memory()
+    t0 = time.perf_counter()
+    phase_fault_tolerance(dev)
+    emit("phase_seconds", of="fault_tolerance",
+         seconds=time.perf_counter() - t0)
+
+    main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"] \
+        + trained["nbr_parity"]
     B, S = MAIN_SHAPE
     fl = timed[MAIN_SHAPE]
     sd = timed_ssd[("mamba2-1.3b", B, S)]
     nbr_by_phase = {"quickstart": quick_launches,
                     "full_history": full_launches,
                     "serving": served["launches"]["nbr_adjacency"],
-                    "serving_ssm": served_ssm["launches"]["nbr_adjacency"]}
+                    "serving_ssm": served_ssm["launches"]["nbr_adjacency"],
+                    "training": trained["launches"]["nbr_adjacency"]}
     flash_by_phase = {"serving": served["launches"]["flash_attention"],
-                      "hybrid": hybrid["launches"]["flash_attention"]}
+                      "hybrid": hybrid["launches"]["flash_attention"],
+                      "training": trained["launches"]["flash_attention"]}
     flash_parity = served["parity"]["flash_attention"] + \
-        hybrid["parity"]["flash_attention"]
+        hybrid["parity"]["flash_attention"] + trained["parity"]
     ssd_by_phase = {"serving_ssm": served_ssm["launches"]["ssd_scan"],
-                    "hybrid": hybrid["launches"]["ssd_scan"]}
+                    "hybrid": hybrid["launches"]["ssd_scan"],
+                    "training_ssm": trained_ssm["launches"]["ssd_scan"]}
     ssd_parity = served_ssm["parity"]["ssd_scan"] + \
-        hybrid["parity"]["ssd_scan"]
+        hybrid["parity"]["ssd_scan"] + trained_ssm["parity"]
     print(json.dumps({"kernels": [{
         "name": "nbr_adjacency", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
@@ -1697,7 +2120,12 @@ def main() -> int:
         "device_ms": flash_dev[0],
         "device_ms_zamba2": hybrid["device_ms"]["flash"][0],
         "design": FA.DESIGN,
+        "backward": "recompute through models/layers.attention_xla, "
+        "differentiated by autograd (FlashAttention, a torch.autograd."
+        "Function), as the reference's custom_vjp "
+        "(src/repro/kernels/flash_attention.py:143-160)",
         "launches_by_dtype": by_dtype(served["launches"], hybrid["launches"],
+                                      trained["launches"],
                                       name="flash_attention"),
         "timed": {("zamba2_B8xS48" if key == "zamba2" else
                    f"B{key[0]}xS{key[1]}"): summary(rec)
@@ -1719,8 +2147,14 @@ def main() -> int:
         "device_ms": ssd_dev[0],
         "device_ms_zamba2": hybrid["device_ms"]["ssd"][0],
         "design": SSD.DESIGN,
+        "backward": "recompute through models/mamba2.ssd_chunked (y cast "
+        "to fp32), differentiated by autograd (SSDScan, a torch.autograd."
+        "Function), as the reference's custom_vjp "
+        "(src/repro/kernels/ssd_scan.py:115-136)",
         "launches_by_dtype": by_dtype(served_ssm["launches"],
-                                      hybrid["launches"], name="ssd_scan"),
+                                      hybrid["launches"],
+                                      trained_ssm["launches"],
+                                      name="ssd_scan"),
         "timed": {("zamba2_B8xS48" if name == "zamba2-7b" else
                    f"B{b}xS{s_}"): summary(rec)
                   for (name, b, s_), rec in timed_ssd.items()},

@@ -50,6 +50,28 @@ def model_params_from_jax(params, device=None, dtype=None):
     return t.to(device=dev, dtype=dtype or getattr(torch, name))
 
 
+def train_state_from_jax(state, device=None) -> dict:
+    """A reference train state (``repro.train.step.init_train_state`` or a
+    step's result, as numpy leaves) as the port's: params, the moments m
+    and v (fp32 or bf16 tensors, or an int8 moment's (codes, scales)
+    pair as a tuple of tensors), ``count`` as an int, and ``ef`` when the
+    state has one."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return tuple(conv(v) for v in t)
+        return model_params_from_jax(t, dev)
+    out = {"params": conv(state["params"]),
+           "opt": {"m": conv(state["opt"]["m"]), "v": conv(state["opt"]["v"]),
+                   "count": int(np.asarray(state["opt"]["count"]))}}
+    if "ef" in state:
+        out["ef"] = conv(state["ef"])
+    return out
+
+
 def workload_db_from_reference(path, device=None, **kw) -> WorkloadDB:
     """A ``workloads.json`` written by ``repro.core.knowledge.WorkloadDB``
     (format v1–v3), loaded into the port's WorkloadDB."""

@@ -57,10 +57,10 @@ _UNSET = object()
 
 def _executor_fault_types() -> tuple:
     """Exception types that mean "the executor faulted mid-measure" (vs a
-    programming error, which must propagate).  The reference adds
-    ``runtime.fault.SimulatedNodeFailure``, raised by the chaos executors,
-    which arrive with ``runtime/fault.py`` in a later slice."""
-    return (TimeoutError,)
+    programming error, which must propagate).  Resolved lazily, as in the
+    reference: ``runtime.fault`` imports ``core``."""
+    from repro_torch.runtime.fault import SimulatedNodeFailure
+    return (SimulatedNodeFailure, TimeoutError)
 
 
 @dataclass

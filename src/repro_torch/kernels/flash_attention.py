@@ -20,9 +20,12 @@ window past the last key): the reference averages v over its KV padded to
 
 The public entry keeps the reference's quirks: a tensor ``window`` (the
 per-layer scalar the transformer passes) becomes 0, and ``q_pos``/
-``kv_pos`` are accepted and ignored (ROADMAP C4, C10).  There is no
-backward here: serving needs none, and the ``torch.autograd.Function``
-comes with the training slice.
+``kv_pos`` are accepted and ignored (ROADMAP C4, C10).  It goes through
+``FlashAttention``, a ``torch.autograd.Function``: the forward above, and
+a backward that recomputes through ``models/layers.attention_xla`` and
+differentiates that, as the reference's ``custom_vjp`` does
+(``flash_attention.py:143-160``); there is no backward kernel, in the
+reference or here.
 """
 from __future__ import annotations
 
@@ -214,6 +217,38 @@ def _flash_fwd(q, k, v, kv_len=None, *, causal=True, window=0, softcap=0.0,
                             softcap=softcap, bq=bq, bk=bk)
 
 
+def _ref(q, k, v, causal, window, softcap):
+    """The backward's oracle, the reference's ``_ref``: ``attention_xla``
+    over the whole sequence (``kernels/ref.attention_ref``)."""
+    from repro_torch.kernels.ref import attention_ref
+    return attention_ref(q, k, v, causal=causal, window=window or None,
+                         softcap=softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: ``_flash_fwd`` (the kernel on a CUDA tensor, the plain
+    version on a CPU tensor).  Backward: ``_ref`` recomputed on detached
+    copies of the saved q, k, v and differentiated by autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, softcap)
+        return _flash_fwd(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            out = _ref(*qkv, *ctx.opts)
+            wrt = [t for t in qkv if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return (*(next(grads) if t.requires_grad else None for t in qkv),
+                None, None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
                     q_pos=None, kv_pos=None):
     """Public entry, with the reference's signature.  A tensor ``window``
@@ -221,5 +256,4 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
     exactly as the reference does."""
     w = int(window) if window is not None and not hasattr(window, "shape") \
         else 0
-    return _flash_fwd(q, k, v, causal=causal, window=w,
-                      softcap=float(softcap))
+    return FlashAttention.apply(q, k, v, bool(causal), w, float(softcap))

@@ -17,9 +17,11 @@ per SSD layer:
 Inputs: x (B, S, H, P) bf16 or fp32, dt (B, S, H) fp32, A (H,) fp32,
 Bm/Cm (B, S, G, N) in x's dtype; head h reads group h // (H / G).
 Returns y (B, S, H, P) fp32 and the final state (B, H, N, P) fp32.  The
-oracle is ``models/mamba2.ssd_chunked``.  There is no backward here:
-serving needs none, and the ``torch.autograd.Function`` comes with the
-training slice.
+oracle is ``models/mamba2.ssd_chunked``.  The public ``ssd`` goes through
+``SSDScan``, a ``torch.autograd.Function``: the forward above, and a
+backward that recomputes through ``ssd_chunked`` (y cast to fp32) and
+differentiates that, as the reference's ``custom_vjp`` does
+(``ssd_scan.py:115-136``); there is no backward kernel.
 """
 from __future__ import annotations
 
@@ -212,6 +214,39 @@ def _ssd_fwd_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     return y, state
 
 
+def _ref(x, dt, A, Bm, Cm, chunk: int):
+    """The backward's oracle, the reference's ``_ref``: ``ssd_chunked``
+    with y cast to fp32 (``kernels/ref.ssd_ref``)."""
+    from repro_torch.kernels.ref import ssd_ref
+    return ssd_ref(x, dt, A, Bm, Cm, chunk)
+
+
+class SSDScan(torch.autograd.Function):
+    """Forward: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor.  Backward: ``_ref`` recomputed on detached copies of the saved
+    inputs and differentiated by autograd, from the grads of both outputs
+    (y and the final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        if dispatch.resolve("auto", x.device) == "cuda":
+            return _ssd_fwd_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+        return _ssd_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+            y, state = _ref(*ins, ctx.chunk)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad((y, state), wrt, (gy, gstate)))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
+
+
 def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     """Public entry, with the reference's signature: the chunk is capped at
     S and halved until it divides S (``ssd_scan.py:139-145``), then the
@@ -220,6 +255,4 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 256):
     Q = min(chunk, x.shape[1])
     while x.shape[1] % Q:
         Q //= 2
-    if dispatch.resolve("auto", x.device) == "cuda":
-        return _ssd_fwd_cuda(x, dt, A, Bm, Cm, chunk=Q)
-    return _ssd_fwd_plain(x, dt, A, Bm, Cm, chunk=Q)
+    return SSDScan.apply(x, dt, A, Bm, Cm, Q)

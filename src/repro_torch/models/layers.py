@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG = -1e30
 
@@ -108,7 +109,7 @@ def _mask_bias(q_pos, kv_pos, *, causal: bool, window, prefix_len: int,
     return torch.where(ok, 0.0, NEG).to(torch.float32)
 
 
-def _attn_block(q, k, v, bias, *, softcap: float, scale: float):
+def _attn_block_impl(q, k, v, bias, softcap: float, scale: float):
     """q: (B,Sq,K,G,D)  k,v: (B,Skv,K,D)  bias: (Sq,Skv).  Scores in f32;
     probabilities cast to v's dtype before the second product, as the
     reference does."""
@@ -119,6 +120,19 @@ def _attn_block(q, k, v, bias, *, softcap: float, scale: float):
     s = s + bias[None, None, None]
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bkgqt,btkd->bqkgd", p, v)
+
+
+def _attn_block(q, k, v, bias, *, softcap: float, scale: float):
+    """``_attn_block_impl``; while grad is enabled and q, k or v needs it,
+    under ``torch.utils.checkpoint`` with nothing saved but the inputs:
+    the O(Sq·Skv) scores and probabilities are recomputed in the backward,
+    never stored (the reference's ``nothing_saveable`` remat,
+    ``layers.py:105-114``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return checkpoint(_attn_block_impl, q, k, v, bias, softcap, scale,
+                          use_reentrant=False)
+    return _attn_block_impl(q, k, v, bias, softcap, scale)
 
 
 def attention_xla(q, k, v, *, q_pos, kv_pos, causal=True, window=None,

@@ -4,17 +4,19 @@ Port of ``repro/models/model.py``, for the families the port runs so far:
 ``dense`` (``models/transformer.py``), ``ssm`` (Mamba2) and ``hybrid``
 (Zamba2) (``models/ssm_lm.py``).  ``moe`` and ``vlm`` go to the
 transformer, which raises for their MoE layers and patch prefix;
-``encdec`` raises here.  The loss and training entry points come with the
-training slice.
+``encdec`` raises here.
 
 Functions:
   init(gen, cfg)                         -> params (drawn from ``gen``)
   forward(params, cfg, batch, tun)       -> (logits, aux, cache|None)
+  loss_fn(params, cfg, batch, tun)       -> (loss, {"ce", "aux"})
   prefill(params, cfg, batch, tun)       -> (logits, cache)
   decode(params, cfg, batch, cache, tun) -> (logits, cache), cache in place
   init_cache(cfg, batch, seq)            -> zeroed cache tensors
   input_specs(cfg, shape)                -> {name: (shape, dtype)} for a
-                                            prefill or decode batch
+                                            train, prefill or decode batch
+  cache_specs(cfg, shape)                -> {name: (shape, dtype)} of the
+                                            cache, nothing allocated
   make_batch(gen, cfg, shape)            -> a random batch of those specs
 """
 from __future__ import annotations
@@ -50,6 +52,27 @@ def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
               cache=cache)
 
 
+def cross_entropy(logits, targets, mask, vocab: int | None = None):
+    """Mean token cross-entropy over ``mask`` in fp32; logits past
+    ``vocab`` (the padded rows) are masked to -1e30 first."""
+    logits = logits.to(torch.float32)
+    if vocab is not None and logits.shape[-1] > vocab:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
+        logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def loss_fn(params, cfg, batch, tun):
+    """(loss, {"ce", "aux"}) of a train batch: cross-entropy + the
+    forward's auxiliary loss."""
+    logits, aux, _ = forward(params, cfg, batch, tun)
+    ce = cross_entropy(logits, batch["targets"], batch["mask"], cfg.vocab)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def prefill(params, cfg, batch, tun, cache=None):
     """Last-position logits and the cache, written into ``cache`` (in
     place, capacity >= the prompt) when given."""
@@ -76,28 +99,46 @@ def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
-    """Batch (shape, dtype) pairs for (cfg, shape) of the ported families;
-    training batches come with the training slice."""
+    """Batch (shape, dtype) pairs for (cfg, shape) of the ported families:
+    a train batch adds ``targets`` (int32) and ``mask`` (fp32) to the
+    tokens."""
     _check(cfg)
     B, Sq = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return {"tokens": ((B, 1), torch.int32), "pos": ((), torch.int32)}
-    if shape.kind == "train":
-        raise NotImplementedError("training batches are not ported yet "
-                                  "(ROADMAP queue A, item 15)")
     if cfg.family == "vlm":
         raise NotImplementedError(T._VLM)
-    return {"tokens": ((B, Sq), torch.int32)}
+    d = {"tokens": ((B, Sq), torch.int32)}
+    if shape.kind == "train":
+        d["targets"] = ((B, Sq), torch.int32)
+        d["mask"] = ((B, Sq), torch.float32)
+    return d
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """(shape, dtype) of each cache tensor for (cfg, shape), as nested
+    dicts like the cache; allocates nothing (a cache on the meta
+    device)."""
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                       device="meta")
+
+    def spec(t):
+        if isinstance(t, dict):
+            return {k: spec(v) for k, v in t.items()}
+        return tuple(t.shape), t.dtype
+    return spec(cache)
 
 
 def make_batch(gen: torch.Generator, cfg: ModelConfig,
                shape: ShapeSpec) -> dict:
-    """Random batch matching ``input_specs``: tokens in [0, vocab) drawn
-    from ``gen``, on ``gen``'s device."""
+    """Random batch matching ``input_specs``: tokens and targets in
+    [0, vocab) drawn from ``gen``, a mask of ones, on ``gen``'s device."""
     out = {}
     for k, (shp, dtype) in input_specs(cfg, shape).items():
         if k == "pos":
             out[k] = shape.seq_len - 1
+        elif k == "mask":
+            out[k] = torch.ones(shp, dtype=dtype, device=gen.device)
         else:
             out[k] = torch.randint(0, cfg.vocab, shp, generator=gen,
                                    device=gen.device, dtype=dtype)

@@ -10,6 +10,10 @@ set of weights) runs at the start of every ``hybrid_period``-layer group,
 specialised per invocation by LoRA deltas (rank ``lora_rank``) on ``wq``
 and ``wi``; the trailing remainder layers follow the last group.
 
+Under training (grad enabled) each SSD layer runs under the ``remat``
+tunable's policy, and each Zamba2 group (shared block + its SSD layers)
+under it again, at the reference's sites (``ssm_lm.py:76, 187, 200``).
+
 Caches (``cache_mamba``/``cache_zamba``): the SSM state of every layer in
 fp32, the last ``d_conv - 1`` pre-conv rows in the model dtype, and for
 Zamba2 the shared block's keys and values per group, (G, B, S, K, hd), in
@@ -23,7 +27,7 @@ import torch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
-from repro_torch.models.transformer import _unstack
+from repro_torch.models.transformer import _unstack, remat
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -87,8 +91,9 @@ def forward_mamba(params, cfg, batch, tun, *, return_cache=False, cache=None):
     if return_cache and cache is None:
         cache = cache_mamba(cfg, x.shape[0], x.shape[1], device=x.device)
     layers = _unstack(params["layers"], cfg.n_layers)
+    block = remat(_ssm_block, tun, x, params["layers"])
     for i in range(cfg.n_layers):
-        x, st = _ssm_block(layers[i], x, cfg, tun)
+        x, st = block(layers[i], x, cfg, tun)
         if return_cache:
             _write_state(_layer_state(cache, i), st)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -214,18 +219,26 @@ def forward_zamba(params, cfg, batch, tun, *, return_cache=False, cache=None):
     if return_cache and cache is None:
         cache = cache_zamba(cfg, x.shape[0], S, device=x.device)
     loras, groups, rest = _zamba_layers(params, cfg)
+    inner = remat(_ssm_block, tun, x, params)
+
+    def outer(lora, layers, x):
+        x, kv = _shared_block(params["shared"], lora, x, cfg, tun,
+                              positions=positions)
+        states = []
+        for p_l in layers:
+            x, st = inner(p_l, x, cfg, tun)
+            states.append(st)
+        return x, kv, states
+    outer = remat(outer, tun, x, params)
     for g, (lora, layers) in enumerate(zip(loras, groups)):
-        x, (k, v) = _shared_block(params["shared"], lora, x, cfg, tun,
-                                  positions=positions)
+        x, (k, v), states = outer(lora, layers, x)
         if return_cache:
             cache["k"][g, :, :S] = k
             cache["v"][g, :, :S] = v
-        for i, p_l in enumerate(layers):
-            x, st = _ssm_block(p_l, x, cfg, tun)
-            if return_cache:
+            for i, st in enumerate(states):
                 _write_state(_layer_state(cache["g_ssm"], g, i), st)
     for i, p_l in enumerate(rest):
-        x, st = _ssm_block(p_l, x, cfg, tun)
+        x, st = inner(p_l, x, cfg, tun)
         if return_cache:
             _write_state(_layer_state(cache["r_ssm"], i), st)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -3,15 +3,21 @@
 Port of ``repro/models/transformer.py``.  Layers keep the reference's
 stacked layout (leading L axis); the reference's ``lax.scan`` over them is
 a Python loop, and gemma2's per-layer window rides along as a 0-dim
-tensor, as the traced scan scalar does in the reference.  Serving needs no
-gradient, so there is no rematerialisation policy here.
+tensor, as the traced scan scalar does in the reference.  Each layer body
+runs under the ``remat`` tunable's policy (``REMAT_POLICY``) while grad is
+enabled and something in it needs grad — training; the serving path runs
+the body as it is.
 
 MoE layers (``cfg.moe``) and the vlm patch prefix are not ported yet and
 raise ``NotImplementedError`` (ROADMAP queue A, item 14).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
@@ -20,6 +26,46 @@ _MOE = ("MoE layers (cfg.moe) are not ported yet (ROADMAP queue A, item "
         "14: models/moe.py)")
 _VLM = ("the vlm patch prefix is not ported yet (ROADMAP queue A, item 14: "
         "the vlm family)")
+
+
+# 2-D matrix products: the counterpart of ``dots_with_no_batch_dims_saveable``
+# (``x @ W`` of a (B, S, d) activation reaches ``aten.mm``; attention's
+# batched einsums reach ``aten.bmm`` and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, **kw):
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+# the reference's policies (``transformer.py:18-22``): "none" saves every
+# activation, "dots" only the 2-D matmul outputs, "full" only the body's
+# inputs
+REMAT_POLICY = {
+    "none": lambda fn: fn,
+    "dots": lambda fn: _checkpointed(fn, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)),
+    "full": _checkpointed,
+}
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(fn, tun, *inputs):
+    """``fn`` under ``tun.remat``'s policy when grad is enabled and one of
+    ``inputs`` (tensors or dicts of them) needs grad, else ``fn``."""
+    if torch.is_grad_enabled() and any(_needs_grad(t) for t in inputs):
+        return REMAT_POLICY[tun.remat](fn)
+    return fn
 
 
 def _check_family(cfg) -> None:
@@ -141,9 +187,13 @@ def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
         cache = init_cache(cfg, x.shape[0], S, device=x.device)
     wins = layer_windows(cfg, cfg.n_layers, device=x.device).unbind(0)
     layers = _unstack(params["layers"], cfg.n_layers)
+
+    def body(p_l, x, win):
+        return block_apply(p_l, x, cfg, tun, positions=positions,
+                           window=win, prefix_len=prefix_len)
+    body = remat(body, tun, x, params["layers"])
     for i in range(cfg.n_layers):
-        x, (k, v) = block_apply(layers[i], x, cfg, tun, positions=positions,
-                                window=wins[i], prefix_len=prefix_len)
+        x, (k, v) = body(layers[i], x, wins[i])
         if return_cache:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v

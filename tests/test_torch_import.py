@@ -61,6 +61,21 @@ eng = ServeEngine(tiny_config("mamba2-1.3b"), device="cpu")
 rep = eng.serve(batch=2, prompt_len=16, gen=3,
                 tunables=Tunables(attn_impl="pallas", ssm_chunk=8))
 assert rep.generated.shape == (2, 4), rep.generated.shape
+from repro_torch.configs.base import ShapeSpec, reduced
+from repro_torch.configs.registry import get_config
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.runtime.fault import FailureInjector
+from repro_torch.runtime.loop import Trainer
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    tr = Trainer(reduced(get_config("mamba2-1.3b")).replace(n_layers=2),
+                 ShapeSpec("t", 32, 2, "train"),
+                 OptConfig(moments_dtype="int8"),
+                 Tunables(attn_impl="pallas", ssm_chunk=16), ckpt_dir=d,
+                 ckpt_every=2, injector=FailureInjector(fail_steps=(3,)),
+                 device="cpu")
+    rep = tr.run(4)
+assert rep.steps_done == 4 and rep.failures_recovered == 1, rep
 print(" ".join(names))
 print(len(names))
 """
@@ -92,6 +107,17 @@ SEED_SLICE = [
 ]
 
 
+# modules of the training slice
+TRAIN_SLICE = [
+    "repro_torch.optim.adamw", "repro_torch.optim.compression",
+    "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.models.registry", "repro_torch.data.pipeline",
+    "repro_torch.runtime.checkpoint", "repro_torch.runtime.fault",
+    "repro_torch.runtime.loop", "repro_torch.launch.train",
+    "repro_torch.convert",
+]
+
+
 def test_every_module_imports_without_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],
                           capture_output=True, text=True, timeout=300,
@@ -102,6 +128,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert set(SERVING_SLICE) <= set(walked)
     assert set(SSM_SLICE) <= set(walked)
     assert set(SEED_SLICE) <= set(walked)
+    assert set(TRAIN_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(
