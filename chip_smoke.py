@@ -82,15 +82,35 @@ raising (exit code != 0):
 17. ``fault_tolerance`` — examples/fault_tolerance.py's run: checkpoints
                        every 5 steps, failures at 8 and 17, against an
                        uninterrupted run.
+18. ``scenarios``    — the manifest's eight ported scenarios (the session,
+                       crash and serving kinds) at seeds 0 and 1 through
+                       ``repro_torch.scenarios`` on the card: every gate
+                       true, per-scenario seconds; the three scenarios of
+                       unported kinds printed with the ROADMAP item each
+                       waits for.
+19. ``durable_history`` — full_history's config and stream under
+                       ``KermitSupervisor`` (a snapshot every 512 windows),
+                       uninterrupted and with a ``CrashFault`` at window
+                       2600: decisions (events, RETUNE tunables, monitor
+                       labels, final tunables) equal, one crash and one
+                       restore; the snapshot's bytes and one checkpoint's
+                       and one restore's seconds at retention 4096.
+20. ``plan_model``   — ``benchmarks/bench_costmodel.py``'s two gates on the
+                       card: the model-guided Plan commits the oracle's
+                       cost within 10 % of the 5184-point grid (seeds 0–2),
+                       and ``model_guided=False`` is bit-identical to the
+                       unmodelled Plan.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
 once per analysis of the fast paths, the dense kernel once per analysis
 of the seed paths (and the ε-neighbour kernel never there, the dense
-kernel never on the fast paths), the attention kernel once per attention layer of every
-prefill (28 × serve calls for qwen2, 13 per zamba2 prefill), the SSD
-kernel once per SSD layer of every prefill (48 × serve calls for mamba2,
-81 per zamba2 prefill), and in training once per layer run: each forward
+kernel never on the fast paths; in ``scenarios`` and ``durable_history``
+once per analysis run, replays and reruns included), the attention
+kernel once per attention layer of every prefill (28 × serve calls for
+qwen2, 13 per zamba2 prefill), the SSD kernel once per SSD layer of
+every prefill (48 × serve calls for mamba2, 81 per zamba2 prefill), and
+in training once per layer run: each forward
 pass and each remat recompute of a layer (counted, as they start), every
 one of those bf16 launches on the
 tensor-core kernels (the per-dtype counters).  The backward of both is a
@@ -159,6 +179,15 @@ from repro_torch.runtime.fault import FailureInjector  # noqa: E402
 from repro_torch.runtime.loop import Trainer  # noqa: E402
 from repro_torch.train.step import (loss_and_grads,  # noqa: E402
                                     make_train_step)
+from repro_torch.core.explorer import DEFAULT_SPACE, Explorer  # noqa: E402
+from repro_torch.core.knowledge import WorkloadDB  # noqa: E402
+from repro_torch.core.monitor import WorkloadContext  # noqa: E402
+from repro_torch.core.plugin import KermitPlugin  # noqa: E402
+from repro_torch.kermit import (ChaosExecutor, CrashFault,  # noqa: E402
+                                ExecConfig, KermitSupervisor)
+from repro_torch.scenarios import (UNPORTED_KINDS,  # noqa: E402
+                                   load_manifest, run_manifest)
+from repro_torch.runtime.checkpoint import load_snapshot  # noqa: E402
 
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
@@ -1956,6 +1985,269 @@ def phase_fault_tolerance(dev) -> dict:
     return {"resumed_max_relative_diff": err}
 
 
+# ---------------------------------------------------------------------------
+# the self-healing path: scenarios, durable sessions, the model-guided Plan
+# ---------------------------------------------------------------------------
+
+def count_calls(owner, name: str, log: list):
+    """Count the calls of ``owner.name`` (a class's method too) in ``log``."""
+    return capture(owner, name, log, lambda a, out: None)
+
+
+def phase_scenarios(dev, seeds=(0, 1)) -> dict:
+    """The manifest's ported scenarios (the session, crash and serving
+    kinds) at both manifest seeds through ``repro_torch.scenarios`` on the
+    card: every gate true.  The ε-neighbour kernel runs once per analysis
+    (the crash kind's two supervised runs and its replay, the
+    ``winner_matches_clean`` reruns included)."""
+    man = load_manifest()
+    names = [n for n, spec in man["scenarios"].items()
+             if spec.get("kind", "session") not in UNPORTED_KINDS]
+    left_out = {n: UNPORTED_KINDS[spec["kind"]]
+                for n, spec in man["scenarios"].items()
+                if spec.get("kind", "session") in UNPORTED_KINDS}
+    emit("scenarios_left_out", scenarios=left_out)
+    base = json.loads((ROOT / "benchmarks" / "baselines" /
+                       "BENCH_scenarios.json").read_text())
+    base = next(iter(base.values()))["value"]["scenarios"]
+    seen, analyses = [], []
+    with tempfile.TemporaryDirectory() as out, dbscan_inputs(seen), \
+            count_calls(A.KermitAnalyser, "run", analyses):
+        reset_counters()
+        t0 = time.perf_counter()
+        summary = run_manifest(out_dir=out, run_id="chip", only=names,
+                               seeds=list(seeds), device=dev)
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        arts = {(r["scenario"], r["seed"]): json.loads(
+            (Path(out) / "chip" / r["artifact"]).read_text())
+            for r in summary["runs"]}
+    assert summary["scenarios"] == names and len(names) == 8, names
+    assert summary["device"] == str(dev), summary["device"]
+    per = []
+    for (name, seed), art in arts.items():
+        failed = [k for k, g in art["gates"].items() if not g["pass"]]
+        assert art["ok"] and not failed, (name, seed, art["gates"])
+        want = base[f"{name}--seed{seed}--auto"]
+        assert set(art["gates"]) == set(want["gates"]), (name, want)
+        m = art["metrics"]
+        per.append({"scenario": name, "seed": seed,
+                    "seconds": art["seconds"],
+                    "gates": {k: g["value"] for k, g in art["gates"].items()},
+                    "recovery_ratio": m.get("recovery_ratio"),
+                    "baseline_recovery_ratio": want["recovery_ratio"],
+                    "windows": m["windows"], "retunes": m["retunes"],
+                    "evaluations": m["evaluations"],
+                    "analyses": m["events"].get("analysis", 0)})
+        emit("scenario", **per[-1])
+    assert len(analyses) == len(seen) > 0, (len(analyses), len(seen))
+    if dev.type == "cuda":
+        assert launches["nbr_adjacency"] == len(analyses), launches
+        assert launches["pairdist"] == launches["flash_attention"] == \
+            launches["ssd_scan"] == 0, launches
+    emit("scenarios", seconds=seconds, runs=len(summary["runs"]),
+         all_ok=summary["all_ok"], analyses_run=len(analyses),
+         kernel_launches=launches["nbr_adjacency"],
+         seconds_by_scenario={n: sum(p["seconds"] for p in per
+                                     if p["scenario"] == n) for n in names})
+    return {"launches": launches["nbr_adjacency"],
+            "parity": check_main_path("scenarios", seen, dev)}
+
+
+def durable_decisions(session) -> dict:
+    """What the loop decided: events without RESTORE and CHECKPOINT (their
+    windows, kinds and labels), the RETUNE tunables, the monitor's labels
+    and the final tunables."""
+    evs = [e for e in session.events
+           if e.kind not in (EventKind.RESTORE.value,
+                             EventKind.CHECKPOINT.value)]
+    return {"events": [(e.window_id, str(e.kind), e.label) for e in evs],
+            "retunes": [e.tunables for e in evs
+                        if e.kind == EventKind.RETUNE.value],
+            "labels": session.monitor.label_log.tolist(),
+            "final": session.current.as_dict()}
+
+
+def phase_durable_history(dev, full: dict, n_windows: int = 4096,
+                          interval: int = 512, crash_at: int = 2600):
+    """``full_history``'s config and stream (the default KermitConfig,
+    retention 4096, 16 features, ε 0.35, analysis every 512) under
+    ``KermitSupervisor``, a snapshot every 512 windows: once uninterrupted,
+    once with a ``CrashFault`` at ``crash_at``, between two snapshots.
+    Gate (``tests/test_scenarios.py:295-340``): the two runs decide alike
+    (events, RETUNE tunables, monitor labels, final tunables), one crash,
+    one restore; and as ``full_history`` did.  Prints the snapshot's bytes
+    (the arrays', and the JSON meta's by field, the retained contexts
+    apart) and one checkpoint's and one restore's seconds at this size."""
+    config = KermitConfig(analysis=AnalysisConfig(interval=interval),
+                          monitor=MonitorConfig(retention=n_windows),
+                          execute=ExecConfig(checkpoint_every=interval))
+    n_seg = -(-n_windows // 66) + 1
+    schedule = [(ARCHETYPES[i % len(ARCHETYPES)], 64) for i in range(n_seg)]
+
+    def factory(faults):
+        return lambda: ChaosExecutor(
+            SimulatorExecutor(schedule, window_size=32, seed=0, device=dev),
+            list(faults), seed=0, window_size=32)
+    samples = factory(())().samples[:n_windows * 32]
+    runs, seen = {}, []
+    with tempfile.TemporaryDirectory() as d, dbscan_inputs(seen):
+        for name, faults in (("clean", ()),
+                             ("crash", (CrashFault(at_window=crash_at),))):
+            sup = KermitSupervisor(config, factory(faults),
+                                   checkpoint_path=Path(d) / f"{name}.npz",
+                                   device=dev)
+            reset_counters()
+            t0 = time.perf_counter()
+            report = sup.run(samples)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "launches": counters()["nbr_adjacency"],
+                          "report": report, "session": sup.session}
+        clean, crash = runs["clean"], runs["crash"]
+        s = crash["session"]
+        snap = Path(d) / "timed.npz"
+        t0 = time.perf_counter()
+        s.checkpoint(snap)
+        checkpoint_s = time.perf_counter() - t0
+        size = snap.stat().st_size
+        arrays, meta = load_snapshot(snap)
+        parts = {"arrays": sum(a.nbytes for a in arrays.values()),
+                 **{f"meta.{k}": len(json.dumps(v)) for k, v in meta.items()
+                    if k not in ("monitor",)},
+                 "meta.monitor.contexts": len(json.dumps(
+                     meta["monitor"]["contexts"]))}
+        t0 = time.perf_counter()
+        restored = KermitSession.restore(
+            snap, executor=factory((CrashFault(at_window=crash_at),))(),
+            device=dev)
+        restore_s = time.perf_counter() - t0
+        assert restored.monitor.label_log.tolist() == \
+            s.monitor.label_log.tolist()
+        restored.close()
+    want, got = (durable_decisions(r["session"]) for r in (clean, crash))
+    rep = crash["report"]
+    assert rep["crashes"] == rep["restores"] == 1, rep
+    assert clean["report"]["crashes"] == 0
+    assert rep["windows"] == clean["report"]["windows"] == n_windows
+    for key in ("events", "retunes", "labels", "final"):
+        assert got[key] == want[key], key
+    restores = [e for e in s.events if e.kind == EventKind.RESTORE.value]
+    assert len(restores) == 1
+    analyses = sum(e[1] == "analysis" for e in want["events"])
+    assert analyses == n_windows // interval, analyses
+    if dev.type == "cuda":
+        assert clean["launches"] == analyses, clean["launches"]
+        assert crash["launches"] >= clean["launches"]
+    retunes = [(t["microbatches"], t["remat"], t["attn_q_chunk"])
+               for t in want["retunes"]]
+    assert retunes == [r[1:] for r in full["retunes"]], retunes
+    assert (want["final"]["microbatches"], want["final"]["remat"],
+            want["final"]["attn_q_chunk"]) == full["final"]
+    emit("durable_history", windows=n_windows, checkpoint_every=interval,
+         crash_at_window=crash_at,
+         restored_from_window=restores[0].detail["window"],
+         seconds={k: r["seconds"] for k, r in runs.items()},
+         checkpoints={k: r["report"]["checkpoints"] for k, r in runs.items()},
+         kernel_launches={k: r["launches"] for k, r in runs.items()},
+         analyses_replayed=crash["launches"] - clean["launches"],
+         snapshot_bytes=size, snapshot_part_bytes=parts,
+         checkpoint_s=checkpoint_s,
+         restore_s=restore_s, events=len(want["events"]),
+         retunes=len(retunes), decisions_equal=True)
+    for r in runs.values():
+        r["session"].close()
+    return {"launches": clean["launches"] + crash["launches"],
+            "parity": check_main_path("durable_history", seen, dev)}
+
+
+def seeded_objective(seed: int, space: dict):
+    """``tests/oracles.py``'s separable objective: each knob value draws an
+    independent weight from ``seed``; a candidate costs their sum."""
+    rng = np.random.default_rng(seed)
+    weights = {k: {v: float(w) for v, w in zip(values, rng.uniform(
+        0.0, 1.0, size=len(values)))} for k, values in space.items()}
+    return lambda tun: sum(weights[k][getattr(tun, k)] for k in weights)
+
+
+def exhaustive_oracle_cost(objective, space: dict) -> float:
+    """The brute-force optimum over the grid (``tests/oracles.py``)."""
+    ex = Explorer(space)
+    return min(float(objective(ex._decode_index(DEFAULT_TUNABLES, i)))
+               for i in range(ex.grid_size()))
+
+
+def plan_scenario(dev, seed: int, **plugin_kw):
+    """``benchmarks/bench_costmodel.py``'s scenario on the card: a tuned
+    donor class with its banked trace (a hill-climb's plus 300 seeded grid
+    rows), a fresh far-away target class."""
+    fn = seeded_objective(seed, DEFAULT_SPACE)
+    char = lambda m: {"mean": np.full(8, m, np.float32),  # noqa: E731
+                      "std": np.ones(8, np.float32), "n": 64}
+    db = WorkloadDB(drift_eps=0.5, device=dev)
+    donor = db.insert(char(1.0))
+    ex = Explorer(DEFAULT_SPACE)
+    db.set_config(donor, ex.global_search(fn).best.as_dict(), optimal=True)
+    rows = list(Explorer(DEFAULT_SPACE).global_search(fn).trace)
+    for i in np.random.default_rng(seed).choice(ex.grid_size(), size=300,
+                                                replace=False):
+        t = ex._decode_index(DEFAULT_TUNABLES, int(i))
+        rows.append((t.as_dict(), float(fn(t))))
+    db.record_trace(donor, rows)
+    target = db.insert(char(5.0))
+    plug = KermitPlugin(db, None, Explorer(DEFAULT_SPACE), **plugin_kw)
+    ctx = WorkloadContext(window_id=0, timestamp=0.0, current_label=target,
+                          predicted={}, in_transition=False)
+    return plug, ctx, fn
+
+
+PLAN_BUDGET = 0.10
+
+
+def phase_plan_model(dev, seeds=(0, 1, 2)) -> None:
+    """The two gates of ``benchmarks/bench_costmodel.py`` on the card: the
+    model-guided Plan commits the oracle's cost within 10 % of the 5184-point
+    grid (+1 for the incumbent probe), the cost model training on the card;
+    ``model_guided=False`` is bit-identical to the unmodelled Plan."""
+    base = json.loads((ROOT / "benchmarks" / "baselines" /
+                       "BENCH_costmodel.json").read_text())
+    base = {r["seed"]: r for r in next(iter(base.values()))["value"][
+        "per_seed"]}
+    per = []
+    for seed in seeds:
+        plug, ctx, fn = plan_scenario(dev, seed, model_guided=True,
+                                      significance=0.1,
+                                      eval_budget=PLAN_BUDGET)
+        t0 = time.perf_counter()
+        best = plug.on_resource_request(fn, ctx)
+        seconds = time.perf_counter() - t0
+        grid = plug.explorer.grid_size()
+        oracle = exhaustive_oracle_cost(fn, DEFAULT_SPACE)
+        st = plug.stats
+        assert grid == 5184 and st.model_searches == 1 and \
+            st.model_fallbacks == 0, vars(st)
+        assert st.evaluations <= int(PLAN_BUDGET * grid) + 1, st.evaluations
+        assert float(fn(best)) == oracle, (fn(best), oracle)
+        assert plug._cost_model.device == dev
+        per.append({"seed": seed, "evaluations": st.evaluations,
+                    "grid": grid, "committed_cost": float(fn(best)),
+                    "oracle_cost": oracle, "seconds": seconds,
+                    "baseline_evaluations": base[seed]["evaluations"]})
+        emit("plan_model", **per[-1])
+    for seed in seeds:
+        a, ctx_a, fn = plan_scenario(dev, seed)
+        b, ctx_b, _ = plan_scenario(dev, seed, model_guided=False,
+                                    significance=0.5, regret_bound=0.01,
+                                    min_trace=1, eval_budget=0.5)
+        best_a, best_b = (p.on_resource_request(fn, c)
+                          for p, c in ((a, ctx_a), (b, ctx_b)))
+        assert best_a == best_b and vars(a.stats) == vars(b.stats), seed
+    emit("plan_model_gates", eval_fraction_max=max(
+        p["evaluations"] / p["grid"] for p in per), budget=PLAN_BUDGET,
+        oracle_cost_match=True, off_parity_bit_identical=True)
+
+
 def release_memory() -> None:
     """Return the memory of engines the caller has dropped."""
     gc.collect()
@@ -2064,9 +2356,21 @@ def main() -> int:
     phase_fault_tolerance(dev)
     emit("phase_seconds", of="fault_tolerance",
          seconds=time.perf_counter() - t0)
+    release_memory()
+
+    t0 = time.perf_counter()
+    scen = phase_scenarios(dev)
+    emit("phase_seconds", of="scenarios", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    durable = phase_durable_history(dev, full_outcome)
+    emit("phase_seconds", of="durable_history",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_plan_model(dev)
+    emit("phase_seconds", of="plan_model", seconds=time.perf_counter() - t0)
 
     main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"] \
-        + trained["nbr_parity"]
+        + trained["nbr_parity"] + scen["parity"] + durable["parity"]
     B, S = MAIN_SHAPE
     fl = timed[MAIN_SHAPE]
     sd = timed_ssd[("mamba2-1.3b", B, S)]
@@ -2074,7 +2378,9 @@ def main() -> int:
                     "full_history": full_launches,
                     "serving": served["launches"]["nbr_adjacency"],
                     "serving_ssm": served_ssm["launches"]["nbr_adjacency"],
-                    "training": trained["launches"]["nbr_adjacency"]}
+                    "training": trained["launches"]["nbr_adjacency"],
+                    "scenarios": scen["launches"],
+                    "durable_history": durable["launches"]}
     flash_by_phase = {"serving": served["launches"]["flash_attention"],
                       "hybrid": hybrid["launches"]["flash_attention"],
                       "training": trained["launches"]["flash_attention"]}

@@ -79,3 +79,11 @@ def workload_db_from_reference(path, device=None, **kw) -> WorkloadDB:
     if not db.load(path):
         raise FileNotFoundError(path)
     return db
+
+
+def cost_model_from_jax(model, device=None):
+    """A fitted ``repro.core.costmodel.CostModel`` as the port's, through the
+    reference's own ``export_state`` (parameters as float32 lists, so the
+    carried weights are exact)."""
+    from repro_torch.core.costmodel import CostModel
+    return CostModel.from_state(model.export_state(), device=device)

@@ -26,7 +26,7 @@ aliasing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
@@ -328,3 +328,37 @@ class RandomForest:
 
     def score(self, x, y):
         return float(np.mean(self.predict(x) == np.asarray(y)))
+
+    # -- durable-session state (see KermitSession.checkpoint) ---------------
+
+    def state_dict(self) -> tuple[dict, dict]:
+        """(meta, arrays) of a fitted forest in the reference's layout: the
+        frozen config plus the quantile grid and the stacked (feat, thr,
+        dist) tree parameters, as CPU numpy arrays."""
+        if self.params is None:
+            raise ValueError("cannot snapshot an unfitted RandomForest")
+        p = self.params
+        meta = {"fc": asdict(self.fc)}
+        arrays = {"grid": self.grid.cpu().numpy().astype(np.float32),
+                  "feat": p["feat"].cpu().numpy().astype(np.int32),
+                  "thr": p["thr"].cpu().numpy().astype(np.float32),
+                  "dist": p["dist"].cpu().numpy().astype(np.float32)}
+        return meta, arrays
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: dict, *,
+                   device=None) -> "RandomForest":
+        """A fitted forest from ``state_dict``'s layout (the reference's
+        too), its tensors on ``device`` (None: CUDA)."""
+        forest = cls(ForestConfig(**meta["fc"]), device=device)
+        dev = forest.device
+        forest.grid = torch.as_tensor(
+            np.asarray(arrays["grid"], np.float32), device=dev)
+        forest.params = {
+            "feat": torch.as_tensor(np.asarray(arrays["feat"], np.int32),
+                                    device=dev),
+            "thr": torch.as_tensor(np.asarray(arrays["thr"], np.float32),
+                                   device=dev),
+            "dist": torch.as_tensor(np.asarray(arrays["dist"], np.float32),
+                                    device=dev)}
+        return forest

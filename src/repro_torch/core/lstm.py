@@ -18,7 +18,7 @@ reference's ``jax.random`` draws.  The numpy subsample of long histories
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import asdict, dataclass, replace
 
 import numpy as np
 import torch
@@ -229,3 +229,31 @@ class WorkloadPredictor:
         xs, ys = _make_dataset(np.asarray(labels, np.int32), self.pc)
         preds = self.predict(xs)
         return {h: float(np.mean(preds[h] == ys[h])) for h in HORIZONS}
+
+    # -- durable-session state (see KermitSession.checkpoint) ---------------
+
+    def state_dict(self) -> tuple[dict, dict]:
+        """(meta, arrays) of a trained predictor in the reference's layout:
+        the frozen config plus the parameter tree flattened to '/'-joined
+        keys (``runtime/checkpoint.py``'s convention), as CPU numpy."""
+        if self.params is None:
+            raise ValueError("cannot snapshot an untrained WorkloadPredictor")
+        from repro_torch.runtime.checkpoint import _flatten
+        return {"pc": asdict(self.pc)}, _flatten(self.params)
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: dict, *,
+                   device=None) -> "WorkloadPredictor":
+        """A trained predictor from ``state_dict``'s layout (the
+        reference's too), its float32 tensors on ``device`` (None: CUDA)."""
+        pred = cls(PredictorConfig(**meta["pc"]), device=device)
+        tree: dict = {}
+        for key, leaf in arrays.items():
+            parts = key.split("/")
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = torch.as_tensor(
+                np.asarray(leaf, np.float32), device=pred.device)
+        pred.params = tree
+        return pred

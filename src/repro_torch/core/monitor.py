@@ -354,6 +354,53 @@ class KermitMonitor:
         except Exception:
             pass
 
+    # -- durable-session state (see KermitSession.checkpoint) ------------------
+
+    def export_state(self) -> tuple[dict, dict]:
+        """(meta, arrays) snapshot of every mutable Monitor field that shapes
+        decisions: the pending sample buffer, the Welch carry window, the
+        window counter, the WindowRing, and the retained contexts.  The
+        attached classifier/predictor are snapshotted by their own owners
+        (the analyser) — the monitor only borrows references."""
+        meta: dict = {"window_id": self._window_id,
+                      "has_prev": self._prev_window is not None,
+                      "contexts": [asdict(c) for c in self.contexts]}
+        arrays: dict = {}
+        if self._buf:
+            arrays["buf"] = np.stack(self._buf).astype(np.float32)
+        if self._prev_window is not None:
+            m, v, n = self._prev_window
+            arrays["prev_mean"] = np.asarray(m, np.float32)
+            arrays["prev_var"] = np.asarray(v, np.float32)
+            meta["prev_n"] = int(n)
+        if self._ring is not None:
+            rmeta, rarr = self._ring.export_state()
+            meta["ring"] = rmeta
+            arrays.update({f"ring_{k}": v for k, v in rarr.items()})
+        return meta, arrays
+
+    def restore_state(self, meta: dict, arrays: dict) -> None:
+        self._window_id = int(meta["window_id"])
+        self._buf = [np.asarray(s, np.float32) for s in arrays["buf"]] \
+            if "buf" in arrays else []
+        if meta.get("has_prev"):
+            self._prev_window = (np.asarray(arrays["prev_mean"], np.float32),
+                                 np.asarray(arrays["prev_var"], np.float32),
+                                 int(meta["prev_n"]))
+        else:
+            self._prev_window = None
+        self._ring = WindowRing.from_state(
+            meta["ring"],
+            {k[len("ring_"):]: v for k, v in arrays.items()
+             if k.startswith("ring_")}) if "ring" in meta else None
+        self.contexts.clear()
+        for d in meta.get("contexts", []):
+            d = dict(d)
+            # JSON coerces the horizon keys to strings; restore int keys
+            d["predicted"] = {int(k): int(v)
+                              for k, v in d["predicted"].items()}
+            self.contexts.append(WorkloadContext(**d))
+
     # -- batch access for the off-line subsystem ------------------------------
 
     def window_series(self, copy: bool = False):

@@ -1,9 +1,8 @@
 """KPlg — the KERMIT plug-in (paper Algorithm 1).
 
 Port of ``repro/core/plugin.py`` (host-side Python; copied).  The
-model-guided Plan path needs ``core/costmodel.py``, which is not ported
-yet: ``model_guided=True`` raises when a search would take it (ROADMAP
-queue A, "model-guided Plan").
+model-guided Plan path trains ``core/costmodel.py``'s MLP on the knowledge
+base's device (``db.device``).
 
 Called at every resource request (here: before each training/serving step
 bundle). Reads the latest workload context from the monitor stream, then:
@@ -23,7 +22,7 @@ bundle). Reads the latest workload context from the monitor stream, then:
                                   knowledge base holds no configuration yet
 
 With ``model_guided`` on (PlanConfig.model_guided), the no-config branch
-first tries the learned Plan path: a jitted cost model trained on the
+first tries the learned Plan path: a cost model trained on the
 record's stored ``SearchResult.trace`` rows ranks the grid, significance
 analysis pins the knobs that don't matter, and the model's winner is only
 committed after a real measurement confirms no regression vs the incumbent
@@ -46,7 +45,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from repro_torch.configs.base import DEFAULT_TUNABLES, Tunables
-from repro_torch.core.explorer import Explorer
+from repro_torch.core.explorer import Explorer, SearchResult
 from repro_torch.core.knowledge import UNKNOWN, WorkloadDB
 from repro_torch.core.monitor import KermitMonitor, WorkloadContext
 
@@ -261,9 +260,62 @@ class KermitPlugin:
         return res
 
     def _model_search(self, objective, rec, near):
-        """The learned Plan path of the reference (cost model trained on
-        stored trace rows, significance pruning, safe commit).  It needs
-        ``core/costmodel.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "model-guided Plan needs core/costmodel.py, which is not ported "
-            "yet (ROADMAP queue A: model-guided Plan)")
+        """The learned Plan path: train a cost model on stored trace rows
+        (own record first, warm-start donor's as extra evidence), prune
+        the space to the significant knobs, probe the model's ranking under
+        the evaluation budget, and commit only after a real measurement
+        confirms no regression vs the incumbent (OnlineTune-style safety).
+        Returns None — "fall back to the unmodelled batched searches" —
+        when the model is cold (too few trace rows),
+        mispredicts its own winner past ``regret_bound``, or loses to the
+        incumbent."""
+        from repro_torch.core.costmodel import (CostModel, knob_sensitivity,
+                                                significant_knobs)
+        label = self._memo_label
+        rows = list(self.db.get_trace(label))
+        if near is not None and near[1] != label:
+            rows += self.db.get_trace(near[1])   # donor evidence transfers
+        if len(rows) < self.min_trace:
+            return None                          # cold model
+        space = self.explorer.space
+        sens = knob_sensitivity(rows, space)
+        self.db.set_sensitivity(label, sens)
+        keep = significant_knobs(sens, space, self.significance)
+        if near is not None:
+            incumbent = self._snap_to_space(near[0])
+        elif rec.config is not None:
+            incumbent = self._snap_to_space(rec.config)
+        else:
+            incumbent = self.default
+        ex = (self.explorer.subspace(keep) if len(keep) < len(space)
+              else self.explorer)
+        model = CostModel(ex.space, device=self.db.device)
+        try:
+            model.fit(rows)
+        except ValueError:                       # rows don't cover the space
+            return None
+        self._cost_model, self._model_label = model, label
+        budget = max(1, int(self.eval_budget * self.explorer.grid_size()))
+        res = ex.model_ranked_exhaustive(objective, incumbent,
+                                         model.predict_arrays,
+                                         max_evals=budget)
+        # safety gate 1 — calibration: a model that misprices its own
+        # committed winner is not to be trusted for ranking either
+        predicted = float(model.predict([res.best])[0])
+        scale = max(abs(predicted), abs(res.cost), 1e-9)
+        # safety gate 2 — no regression: the winner must measure no worse
+        # than the incumbent (evaluated through the same memo, so a probed
+        # incumbent is free)
+        counter, tr = [0], ex._new_trace()
+        incumbent_cost = ex._eval(objective, incumbent, counter, tr)
+        evaluations = res.evaluations + counter[0]
+        if (abs(res.cost - predicted) > self.regret_bound * scale
+                or res.cost > incumbent_cost + 1e-12):
+            # wasted probes still happened — account them, then fall back
+            self.stats.evaluations += evaluations
+            return None
+        self.stats.model_searches += 1
+        if near is not None:
+            self.stats.warm_starts += 1
+        return SearchResult(res.best, res.cost, evaluations,
+                            res.trace + list(tr))

@@ -6,7 +6,7 @@ passes ``device="cpu"``.  ``KermitConfig.impl`` picks the fast paths
 (``"auto"``) or the seed paths end to end (``"legacy"``/``"seed"``: the
 per-sample monitor, the seed analyser with the dense ``pairdist`` kernel,
 the per-record WorkloadDB).  Durable sessions (``checkpoint``/``restore``)
-need ``runtime/checkpoint.py``, a later slice (ROADMAP queue A).
+write the reference's snapshot format: each package restores the other's.
 
 Assembles the full loop (paper Fig. 3) from one declarative ``KermitConfig``
 tree and closes it through a pluggable ``Executor``:
@@ -30,6 +30,7 @@ long-running managed loops hold constant memory.
 from __future__ import annotations
 
 from collections import deque
+from dataclasses import asdict
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -39,13 +40,88 @@ from repro_torch.configs.base import DEFAULT_TUNABLES, Tunables
 from repro_torch.core.analyser import KermitAnalyser
 from repro_torch.core.change_detector import ChangeDetector
 from repro_torch.core.explorer import Explorer
+from repro_torch.core.forest import RandomForest
 from repro_torch.core.knowledge import WorkloadDB
+from repro_torch.core.lstm import WorkloadPredictor
 from repro_torch.core.monitor import KermitMonitor, WorkloadContext
-from repro_torch.core.plugin import KermitPlugin
+from repro_torch.core.plugin import KermitPlugin, PluginStats
 from repro_torch.kermit.config import KermitConfig, resolve_impl
 from repro_torch.kermit.events import AutonomicEvent, EventKind
 from repro_torch.kermit.executor import Executor, ExecutorObjective
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.runtime.checkpoint import load_snapshot, save_snapshot
+
+# -- durable-session snapshot schema ----------------------------------------
+
+CHECKPOINT_FORMAT = "kermit-session"
+CHECKPOINT_VERSION = 2
+#   v2 adds the Plan-model state inside the "plugin" section: the trained
+#   cost-model parameters + the label it was fitted for ("plan" subkey).
+#   Per-record knob-sensitivity rankings travel inside the embedded
+#   WorkloadDB state (its own v3 format).
+
+# every top-level meta field version 2 defines; restore rejects snapshots
+# carrying fields outside this set so a schema change can never be read
+# silently as something else (mirrors WorkloadDB's versioned format)
+_META_FIELDS = frozenset({
+    "format", "version", "config", "session", "monitor", "models",
+    "plugin", "knowledge", "executor",
+})
+
+
+def _migrate_v0(meta: dict) -> dict:
+    """Forward-migrate a hypothetical pre-release v0 snapshot (no executor
+    chain field) to v1.  Kept as the template for real future migrations —
+    the same one-version-at-a-time chain WorkloadDB uses for its v1 -> v2
+    database format."""
+    meta = dict(meta)
+    meta.setdefault("executor", [])
+    meta["version"] = 1
+    return meta
+
+
+def _migrate_v1(meta: dict) -> dict:
+    """v1 -> v2: the Plan phase gained a learned cost model; pre-model
+    snapshots restore with an untrained one (the plugin's cold-model
+    fallback covers the first post-restore searches)."""
+    meta = dict(meta)
+    plug = dict(meta.get("plugin") or {})
+    plug.setdefault("plan", {"model": None, "label": None})
+    meta["plugin"] = plug
+    meta["version"] = 2
+    return meta
+
+
+_MIGRATIONS = {0: _migrate_v0, 1: _migrate_v1}
+
+
+def _validate_checkpoint_meta(meta: dict) -> dict:
+    """Schema-check + forward-migrate snapshot metadata, failing loudly (and
+    naming the version) on anything this build cannot faithfully restore."""
+    if meta.get("format") != CHECKPOINT_FORMAT:
+        raise ValueError(
+            f"not a {CHECKPOINT_FORMAT} snapshot "
+            f"(format={meta.get('format')!r})")
+    version = int(meta.get("version", -1))
+    if version > CHECKPOINT_VERSION:
+        raise ValueError(
+            f"checkpoint version {version} is newer than the supported "
+            f"version {CHECKPOINT_VERSION} — restore with a newer build")
+    while version < CHECKPOINT_VERSION:
+        migrate = _MIGRATIONS.get(version)
+        if migrate is None:
+            raise ValueError(
+                f"checkpoint version {version} has no migration path to "
+                f"version {CHECKPOINT_VERSION}")
+        meta = migrate(meta)
+        version = int(meta["version"])
+    unknown = sorted(set(meta) - _META_FIELDS)
+    if unknown:
+        raise ValueError(
+            f"checkpoint schema version {CHECKPOINT_VERSION} does not "
+            f"define fields {unknown} — refusing a partial restore")
+    return meta
+
 
 class KermitSession:
     """``config`` declares the whole tree; ``executor`` closes the loop.
@@ -334,20 +410,190 @@ class KermitSession:
 
     # -- durable session state (checkpoint / restore) --------------------------
 
+    def _executor_chain(self) -> list:
+        """The bound executor stack outermost-first, unwrapped through each
+        layer's ``inner`` attribute.  Reads ``__dict__`` directly so the
+        delegating ``__getattr__`` on chaos/resilient wrappers cannot forward
+        the lookup past the layer being inspected."""
+        chain = []
+        ex = self.executor
+        while ex is not None:
+            chain.append(ex)
+            ex = ex.__dict__.get("inner")
+        return chain
+
+    def _export_executor_state(self) -> list:
+        """Per-layer ``(type, state)`` snapshot of the executor stack.  The
+        ``export_state`` lookup is class-level for the same delegation
+        reason as ``_executor_chain``."""
+        out = []
+        for ex in self._executor_chain():
+            fn = getattr(type(ex), "export_state", None)
+            out.append({"type": type(ex).__name__,
+                        "state": fn(ex) if callable(fn) else None})
+        return out
+
+    def _restore_executor_state(self, saved: list) -> None:
+        chain = self._executor_chain()
+        if len(saved) != len(chain):
+            raise ValueError(
+                f"snapshot covers an executor stack of {len(saved)} layers "
+                f"but the bound executor has {len(chain)} — rebuild the "
+                "stack the snapshot was taken under before restoring")
+        for entry, ex in zip(saved, chain):
+            if entry["type"] != type(ex).__name__:
+                raise ValueError(
+                    f"snapshot executor layer {entry['type']!r} does not "
+                    f"match bound layer {type(ex).__name__!r}")
+            fn = getattr(type(ex), "restore_state", None)
+            if entry.get("state") is not None and callable(fn):
+                fn(ex, entry["state"])
+
     def checkpoint(self, path: str | Path) -> Path:
-        """Snapshot the whole loop to one file — needs
-        ``runtime/checkpoint.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "KermitSession.checkpoint needs runtime/checkpoint.py, which is "
-            "not ported yet (ROADMAP queue A: durable sessions)")
+        """Atomically snapshot the entire MAPE-K state to one file.
+
+        Covers every phase: Monitor (window ring, pending buffer, Welch
+        carry, contexts), Analyze (trained forest/LSTM parameters via the
+        ``runtime/checkpoint.py`` array serialization), Plan (Explorer memo +
+        plugin stats), Knowledge (WorkloadDB in its versioned save format +
+        undrained journal), Execute (per-layer executor state: chaos clock,
+        fault journal, retry schedule, counters), plus the session's own
+        scalars and bounded event stream.  The CHECKPOINT event is recorded
+        *before* the write so the snapshot contains its own event — a
+        restored run's stream stays bit-identical to an uninterrupted one.
+
+        The write is crash-consistent (temp file + fsync + atomic rename):
+        a crash mid-write leaves the previous snapshot intact."""
+        path = Path(path)
+        window = self.monitor.windows_emitted
+        label = self._last_label if self._last_label is not None else -1
+        self._record(AutonomicEvent(
+            window, EventKind.CHECKPOINT.value, label,
+            detail={"path": str(path), "window": window,
+                    "version": CHECKPOINT_VERSION}))
+
+        arrays: dict = {}
+        mon_meta, mon_arr = self.monitor.export_state()
+        arrays.update({f"monitor/{k}": v for k, v in mon_arr.items()})
+        models: dict = {}
+        for name in ("classifier", "transition_classifier", "predictor"):
+            model = getattr(self.analyser, name)
+            if model is None or getattr(model, "params", None) is None:
+                models[name] = None
+                continue
+            m_meta, m_arr = model.state_dict()
+            models[name] = m_meta
+            arrays.update({f"{name}/{k}": v for k, v in m_arr.items()})
+
+        meta = {
+            "format": CHECKPOINT_FORMAT,
+            "version": CHECKPOINT_VERSION,
+            "config": self.config.to_dict(),
+            "session": {
+                "current": self.current.as_dict(),
+                "last_label": self._last_label,
+                "pending_fault": self._pending_fault,
+                "since_analysis": self._since_analysis,
+                "events_total": self.events_total,
+                "last_analysis_seconds": self._last_analysis_seconds,
+                "events": [asdict(e) for e in self.events],
+            },
+            "monitor": mon_meta,
+            "models": models,
+            "plugin": {"stats": vars(self.plugin.stats).copy(),
+                       "memo_label": self.plugin._memo_label,
+                       "memo": self.plugin.explorer.export_memo(),
+                       "plan": {
+                           "model": (self.plugin._cost_model.export_state()
+                                     if self.plugin._cost_model is not None
+                                     else None),
+                           "label": self.plugin._model_label}},
+            "knowledge": {"db": self.db.to_state(),
+                          "journal": [dict(e) for e in self.db._journal]},
+            "executor": self._export_executor_state(),
+        }
+        return save_snapshot(path, arrays, meta)
 
     @classmethod
-    def restore(cls, path: str | Path, **kw) -> "KermitSession":
-        """Rebuild a session from a ``checkpoint`` snapshot — not ported
-        yet, like ``checkpoint``."""
-        raise NotImplementedError(
-            "KermitSession.restore needs runtime/checkpoint.py, which is "
-            "not ported yet (ROADMAP queue A: durable sessions)")
+    def restore(cls, path: str | Path, *,
+                executor: Optional[Executor] = None,
+                detector: Optional[ChangeDetector] = None,
+                explorer: Optional[Explorer] = None,
+                device=None) -> "KermitSession":
+        """Rebuild a session from a ``checkpoint`` snapshot.
+
+        ``executor`` supplies a freshly built executor stack (executors hold
+        live resources and are never pickled); when its layer types match
+        the snapshot's, each layer's journaled state — chaos clock, fault
+        activation flags, retry schedule, measure counters — is restored so
+        a replayed run perturbs and decides identically.  Validation is
+        strict: unknown schema fields, missing migrations, and mismatched
+        executor stacks all fail loudly rather than half-restore.
+        ``device``: where the restored loop runs (None: CUDA); the trained
+        models' arrays go onto it."""
+        path = Path(path)
+        arrays, meta = load_snapshot(path)
+        meta = _validate_checkpoint_meta(meta)
+        cfg = KermitConfig.from_dict(meta["config"])
+        session = cls(cfg, executor=executor, detector=detector,
+                      explorer=explorer, device=device)
+
+        session.monitor.restore_state(
+            meta["monitor"],
+            {k[len("monitor/"):]: v for k, v in arrays.items()
+             if k.startswith("monitor/")})
+
+        model_types = {"classifier": RandomForest,
+                       "transition_classifier": RandomForest,
+                       "predictor": WorkloadPredictor}
+        for name, model_cls in model_types.items():
+            m_meta = meta["models"].get(name)
+            if m_meta is None:
+                continue
+            prefix = name + "/"
+            model = model_cls.from_state(
+                m_meta, {k[len(prefix):]: v for k, v in arrays.items()
+                         if k.startswith(prefix)}, device=session.device)
+            setattr(session.analyser, name, model)
+            if name in ("classifier", "predictor"):
+                setattr(session.monitor, name, model)
+
+        session.db.load_state(meta["knowledge"]["db"])
+        session.db._journal = [dict(e)
+                               for e in meta["knowledge"]["journal"]]
+
+        plug = meta["plugin"]
+        session.plugin.stats = PluginStats(**plug["stats"])
+        session.plugin._memo_label = plug["memo_label"]
+        session.plugin.explorer.restore_memo(plug["memo"])
+        plan = plug.get("plan") or {}
+        if plan.get("model") is not None:
+            from repro_torch.core.costmodel import CostModel
+            session.plugin._cost_model = CostModel.from_state(
+                plan["model"], device=session.device)
+            session.plugin._model_label = plan.get("label")
+
+        s = meta["session"]
+        session.current = Tunables(**s["current"])
+        session._last_label = s["last_label"]
+        session._pending_fault = (dict(s["pending_fault"])
+                                  if s["pending_fault"] else None)
+        session._since_analysis = int(s["since_analysis"])
+        session._last_analysis_seconds = s["last_analysis_seconds"]
+        for e in s["events"]:
+            session.events.append(AutonomicEvent(**e))
+        session.events_total = int(s["events_total"])
+
+        if executor is not None:
+            session._restore_executor_state(meta.get("executor") or [])
+
+        window = session.monitor.windows_emitted
+        session._record(AutonomicEvent(
+            window, EventKind.RESTORE.value,
+            session._last_label if session._last_label is not None else -1,
+            detail={"path": str(path), "window": window,
+                    "version": int(meta["version"])}))
+        return session
 
     # -- lifecycle -------------------------------------------------------------
 

@@ -76,6 +76,11 @@ with tempfile.TemporaryDirectory() as d:
                  device="cpu")
     rep = tr.run(4)
 assert rep.steps_done == 4 and rep.failures_recovered == 1, rep
+from repro_torch.scenarios import load_manifest, run_scenario
+art = run_scenario("crash_restore",
+                   load_manifest()["scenarios"]["crash_restore"],
+                   device="cpu")
+assert art["ok"] and art["metrics"]["restores"] == 1, art["gates"]
 print(" ".join(names))
 print(len(names))
 """
@@ -117,6 +122,14 @@ TRAIN_SLICE = [
     "repro_torch.convert",
 ]
 
+# modules of the self-healing slice: durable sessions, chaos, the
+# supervisor, the cost model and the scenario runner
+DURABLE_SLICE = [
+    "repro_torch.kermit.chaos", "repro_torch.kermit.supervisor",
+    "repro_torch.core.costmodel", "repro_torch.scenarios",
+    "repro_torch.scenarios.runner", "repro_torch.scenarios.__main__",
+]
+
 
 def test_every_module_imports_without_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],
@@ -129,6 +142,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert set(SSM_SLICE) <= set(walked)
     assert set(SEED_SLICE) <= set(walked)
     assert set(TRAIN_SLICE) <= set(walked)
+    assert set(DURABLE_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(
@@ -141,3 +155,17 @@ def test_no_source_file_imports_jax_or_reference():
     assert len(files) >= 20
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_kermit_api_is_reference_minus_fleet():
+    """``repro_torch.kermit.__all__`` is the reference's facade without the
+    fleet's three names, which wait for their slice."""
+    import repro.kermit as J
+    import repro_torch.kermit as K
+    fleet = {"FleetConfig", "FleetStats", "KermitFleet"}
+    assert fleet <= set(J.__all__)
+    assert K.__all__ == [n for n in J.__all__ if n not in fleet]
+    for name in K.__all__:              # restore compares class names
+        ref = getattr(J, name)
+        if isinstance(ref, type):
+            assert getattr(K, name).__name__ == ref.__name__, name

@@ -144,16 +144,21 @@ def test_explorer_over_simulator_matches_reference(search):
         (jx.measured, jx.measured_batches)
 
 
-def test_deferred_paths_raise():
+def test_deferred_paths_raise(tmp_path):
     ex = SimulatorExecutor(QUICKSTART, window_size=16, device="cpu")
     for impl in ("legacy", "seed"):         # ported: the seed components
         s = KermitSession(KermitConfig(impl=impl), executor=ex, device="cpu")
         assert not (s.monitor.fast or s.analyser.fast)
         assert (s.analyser.dbscan_impl, s.db.impl) == ("legacy", "legacy")
         s.close()
+    # ported: durable sessions (tests/test_torch_durability.py); what
+    # raises now is a file that is not a session snapshot
     s = KermitSession(KermitConfig(), executor=ex, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        s.checkpoint("x.npz")
-    with pytest.raises(NotImplementedError):
-        KermitSession.restore("x.npz")
+    s.checkpoint(tmp_path / "x.npz")
+    r = KermitSession.restore(tmp_path / "x.npz", device="cpu")
+    assert r.events[-1].kind == EventKind.RESTORE.value
+    from repro_torch.runtime.checkpoint import save_snapshot
+    save_snapshot(tmp_path / "y.npz", {}, {"format": "other"})
+    with pytest.raises(ValueError, match="not a kermit-session snapshot"):
+        KermitSession.restore(tmp_path / "y.npz", device="cpu")
     s.close()
