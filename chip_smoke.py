@@ -82,11 +82,11 @@ raising (exit code != 0):
 17. ``fault_tolerance`` — examples/fault_tolerance.py's run: checkpoints
                        every 5 steps, failures at 8 and 17, against an
                        uninterrupted run.
-18. ``scenarios``    — the manifest's eight ported scenarios (the session,
-                       crash and serving kinds) at seeds 0 and 1 through
-                       ``repro_torch.scenarios`` on the card: every gate
-                       true, per-scenario seconds; the three scenarios of
-                       unported kinds printed with the ROADMAP item each
+18. ``scenarios``    — the manifest's nine ported scenarios (the session,
+                       crash, serving and fleet kinds) at seeds 0 and 1
+                       through ``repro_torch.scenarios`` on the card: every
+                       gate true, per-scenario seconds; the two scenarios
+                       of unported kinds printed with the ROADMAP item each
                        waits for.
 19. ``durable_history`` — full_history's config and stream under
                        ``KermitSupervisor`` (a snapshot every 512 windows),
@@ -100,13 +100,35 @@ raising (exit code != 0):
                        cost within 10 % of the 5184-point grid (seeds 0–2),
                        and ``model_guided=False`` is bit-identical to the
                        unmodelled Plan.
+21. ``fleet_ingest`` — ``benchmarks/bench_fleet.py``'s throughput scenario:
+                       ``KermitFleet`` with 256 tenants (retention 4096,
+                       windows of 16 samples cycling four archetypes, 32
+                       nominal windows per tenant, the forest and LSTM
+                       trained on the card in every monitor, no analysis)
+                       against 256 isolated ``KermitSession``s, one
+                       ``step_batch`` per window: labels, transition flags
+                       and predictions equal per tenant and window;
+                       windows/s of both; a steady tick profiled at S = 8
+                       and S = 256 (equal launches), its syncs and copies.
+22. ``fleet_parity`` — ``bench_fleet.py``'s parity-and-transfer run: 8
+                       tenants with simulator executors and cross-tenant
+                       transfer against 8 isolated sessions: labels,
+                       transition windows, committed winners and stored
+                       configurations equal; warm starts and saved
+                       evaluations at least 1; the reference's counts
+                       printed beside.
+23. ``clustering``   — ``benchmarks/bench_clustering.py`` (Fig. 10):
+                       DBSCAN, kmeans at k and k + 2 and single-link over
+                       six seeded window series; Awt and purity.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
 once per analysis of the fast paths, the dense kernel once per analysis
 of the seed paths (and the ε-neighbour kernel never there, the dense
-kernel never on the fast paths; in ``scenarios`` and ``durable_history``
-once per analysis run, replays and reruns included), the attention
+kernel never on the fast paths; in ``scenarios``, ``durable_history``
+and ``fleet_parity`` once per analysis run, replays, reruns and isolated
+sessions included; in ``clustering`` once per DBSCAN and single-link; in
+``fleet_ingest`` never), the attention
 kernel once per attention layer of every prefill (28 × serve calls for
 qwen2, 13 per zamba2 prefill), the SSD kernel once per SSD layer of
 every prefill (48 × serve calls for mamba2, 81 per zamba2 prefill), and
@@ -158,8 +180,8 @@ from repro_torch.configs.base import (DEFAULT_TUNABLES,  # noqa: E402
                                       ShapeSpec, Tunables, reduced)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import analyser as A  # noqa: E402
-from repro_torch.core.dbscan import (dbscan,  # noqa: E402
-                                     labels_from_adjacency)
+from repro_torch.core.dbscan import (  # noqa: E402
+    agglomerative_single_link, dbscan, kmeans, labels_from_adjacency)
 from repro_torch.core.simulator import (ARCHETYPES,  # noqa: E402
                                         archetype_stats)
 from repro_torch.kernels import cuda_build  # noqa: E402
@@ -167,7 +189,8 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import pairdist as P  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
 from repro_torch.kermit import (AnalysisConfig, EventKind,  # noqa: E402
-                                KermitConfig, KermitSession, KnowledgeConfig,
+                                FleetConfig, KermitConfig, KermitFleet,
+                                KermitSession, KnowledgeConfig,
                                 MonitorConfig, PlanConfig, ServeConfig,
                                 ServeEngine, ServeExecutor, SimulatorExecutor,
                                 TrafficGenerator, run_serving_session)
@@ -188,6 +211,8 @@ from repro_torch.kermit import (ChaosExecutor, CrashFault,  # noqa: E402
 from repro_torch.scenarios import (UNPORTED_KINDS,  # noqa: E402
                                    load_manifest, run_manifest)
 from repro_torch.runtime.checkpoint import load_snapshot  # noqa: E402
+from repro_torch.core.simulator import generate, random_schedule  # noqa: E402
+from repro_torch.core.windows import make_windows  # noqa: E402
 
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
@@ -1995,11 +2020,12 @@ def count_calls(owner, name: str, log: list):
 
 
 def phase_scenarios(dev, seeds=(0, 1)) -> dict:
-    """The manifest's ported scenarios (the session, crash and serving
-    kinds) at both manifest seeds through ``repro_torch.scenarios`` on the
-    card: every gate true.  The ε-neighbour kernel runs once per analysis
-    (the crash kind's two supervised runs and its replay, the
-    ``winner_matches_clean`` reruns included)."""
+    """The manifest's ported scenarios (the session, crash, serving and
+    fleet kinds) at both manifest seeds through ``repro_torch.scenarios``
+    on the card: every gate true.  The ε-neighbour kernel runs once per
+    analysis (the crash kind's two supervised runs and its replay, the
+    ``winner_matches_clean`` reruns and the fleet kind's isolated sessions
+    included)."""
     man = load_manifest()
     names = [n for n, spec in man["scenarios"].items()
              if spec.get("kind", "session") not in UNPORTED_KINDS]
@@ -2022,7 +2048,7 @@ def phase_scenarios(dev, seeds=(0, 1)) -> dict:
         arts = {(r["scenario"], r["seed"]): json.loads(
             (Path(out) / "chip" / r["artifact"]).read_text())
             for r in summary["runs"]}
-    assert summary["scenarios"] == names and len(names) == 8, names
+    assert summary["scenarios"] == names and len(names) == 9, names
     assert summary["device"] == str(dev), summary["device"]
     per = []
     for (name, seed), art in arts.items():
@@ -2248,6 +2274,373 @@ def phase_plan_model(dev, seeds=(0, 1, 2)) -> None:
         oracle_cost_match=True, off_parity_bit_identical=True)
 
 
+# ---------------------------------------------------------------------------
+# the fleet (slice 7): KermitFleet at the reference benchmark's sizes, and
+# the Fig-10 clustering comparison with kmeans
+# ---------------------------------------------------------------------------
+
+FLEET_WINDOW = 16                       # benchmarks/bench_fleet.py's WINDOW
+FLEET_TRAIN_SCHED = [("dense_train", 30), ("moe_train", 30),
+                     ("dense_train", 30)]
+FLEET_STREAM_ARCHES = ["dense_train", "moe_train", "dense_train",
+                       "decode_serve"]
+FLEET_TENANTS = 256                     # bench_fleet.py:113-114, full mode
+FLEET_WINDOWS = 32                      # cut from the benchmark's 64
+FLEET_PARITY_TENANTS = 8                # bench_fleet.py:158-161
+FLEET_PARITY_SCHED = [("dense_train", 30), ("moe_train", 30),
+                      ("dense_train", 34)]
+# benchmarks/baselines/BENCH_fleet.json's parity_transfer counts (the
+# reference, JAX on the CPU): printed beside the port's, not gated
+FLEET_REFERENCE = {"scalar_evaluations": 497, "fleet_evaluations": 469,
+                   "warm_transfers": 29, "fleet_evals_saved": 12,
+                   "analyses": 32, "plans": 58}
+
+
+def fleet_trained_artifacts(dev, seed: int = 123):
+    """``bench_fleet.py``'s ``_trained_artifacts``: one analysis of the
+    training schedule, the forest and the LSTM fit by the port on ``dev``."""
+    sim = generate(FLEET_TRAIN_SCHED, window_size=FLEET_WINDOW, seed=seed)
+    an = A.KermitAnalyser(WorkloadDB(None, drift_eps=1.0, device=dev),
+                          device=dev)
+    an.run(make_windows(sim.samples, FLEET_WINDOW))
+    assert an.predictor is not None, "training schedule too short for LSTM"
+    return an.classifier, an.predictor
+
+
+def fleet_traces(n_tenants: int, n_windows: int) -> np.ndarray:
+    """``bench_fleet.py``'s ``_tenant_traces``: (S, T·W, F), the same
+    schedule at per-tenant seeds, cut to equal lengths."""
+    per = max(n_windows // len(FLEET_STREAM_ARCHES), 2)
+    sched = [(a, per) for a in FLEET_STREAM_ARCHES]
+    out = []
+    for s in range(n_tenants):
+        tr = generate(sched, window_size=FLEET_WINDOW, seed=s).samples
+        out.append(tr[:(tr.shape[0] // FLEET_WINDOW) * FLEET_WINDOW])
+    n = min(t.shape[0] for t in out)
+    return np.stack([t[:n] for t in out])
+
+
+def fleet_steady_config() -> KermitConfig:
+    """``bench_fleet.py``'s ``_steady_config`` at the default retention
+    (4096, not the benchmark's 256): no analysis in the timed region."""
+    return KermitConfig(monitor=MonitorConfig(window_size=FLEET_WINDOW),
+                        analysis=AnalysisConfig(interval=10 ** 9))
+
+
+def record_ticks(fleet):
+    """Make ``fleet`` record each tick's (labels, flags, predictions) in
+    ``fleet.ticks_seen``."""
+    fleet.ticks_seen = []
+    real = fleet._tick
+
+    def tick(mean, var):
+        real(mean, var)
+        _, labels, trans, preds, _ = fleet._last_ctx
+        fleet.ticks_seen.append((labels, trans, preds))
+    fleet._tick = tick
+    return fleet
+
+
+def tick_mismatches(fleet, sessions) -> list:
+    """(tenant, window) pairs where a session's context differs from the
+    fleet's tick in label, transition flag or horizon predictions."""
+    out = []
+    for s, sess in enumerate(sessions):
+        for k, c in enumerate(sess.monitor.contexts):
+            labels, trans, preds = fleet.ticks_seen[k]
+            if (c.current_label != labels[s]
+                    or c.in_transition != bool(trans[s])
+                    or [c.predicted[h] for h in (1, 5, 10)]
+                    != preds[:, s].tolist()):
+                out.append((s, k))
+    return out
+
+
+def new_fleet(dev, traces, clf, pred):
+    """A steady-state fleet with every tenant holding ``clf``/``pred``,
+    recording its ticks."""
+    fleet = KermitFleet(FleetConfig(tenants=traces.shape[0],
+                                    base=fleet_steady_config(),
+                                    transfer=False), device=dev)
+    for t in range(fleet.tenants):
+        mv = fleet._tenants[t].monitor
+        mv.classifier, mv.predictor = clf, pred
+    return record_ticks(fleet)
+
+
+def runtime_calls(fn) -> dict:
+    """The CUDA runtime calls ``fn`` makes, as the host records them under
+    the profiler: stream syncs (``cudaStreamSynchronize``; the profiler's
+    own ``cudaDeviceSynchronize`` when it stops is left out), copies
+    (``cudaMemcpyAsync``) and kernel launches; and the copies' kinds as
+    the device trace shows them (pinned or pageable host memory; a
+    pageable host-to-device copy waits for the stream), which may miss
+    the first few, as device traces here lose a prefix."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    names = collections.Counter(e.name for e in prof.events())
+    return {"stream_syncs": names["cudaStreamSynchronize"],
+            "copies": names["cudaMemcpyAsync"],
+            "copy_kinds_seen": {k: n for k, n in sorted(names.items())
+                                if k.startswith("Memcpy")},
+            "kernels": names["cudaLaunchKernel"]}
+
+
+def phase_fleet_ingest(dev) -> dict:
+    """``bench_fleet.py``'s throughput scenario on the card: 256 tenants,
+    32 windows of 16 samples each, the trained forest and LSTM in every
+    monitor, no analysis.  The fleet pass against 256 isolated sessions
+    (one ``step_batch`` per window): labels, flags and predictions equal
+    per tenant and window; launches per tick equal at S = 8 and S = 256."""
+    clf, pred = fleet_trained_artifacts(dev)
+    traces = fleet_traces(FLEET_TENANTS, FLEET_WINDOWS)
+    S, N, _ = traces.shape
+    T = N // FLEET_WINDOW
+    reset_counters()
+
+    small = new_fleet(dev, traces[:8], clf, pred)    # also the warm-up
+    small.ingest(traces[:8])
+    fleet = new_fleet(dev, traces, clf, pred)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet.ingest(traces)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    dispatches = fleet.stats.dispatches
+    assert fleet.stats.ticks == T and dispatches == T, vars(fleet.stats)
+
+    sessions = []
+    for _ in range(S):
+        sess = KermitSession(fleet_steady_config(), device=dev)
+        sess.monitor.classifier, sess.monitor.predictor = clf, pred
+        sessions.append(sess)
+    sessions[0].step_batch(traces[0, :FLEET_WINDOW])      # warm-up
+    sessions[0] = KermitSession(fleet_steady_config(), device=dev)
+    sessions[0].monitor.classifier = clf
+    sessions[0].monitor.predictor = pred
+    t0 = time.perf_counter()
+    for k in range(T):
+        lo, hi = k * FLEET_WINDOW, (k + 1) * FLEET_WINDOW
+        for s in range(S):
+            sessions[s].step_batch(traces[s, lo:hi])
+    torch.cuda.synchronize()
+    iso_s = time.perf_counter() - t0
+    launches = counters()
+    assert launches["nbr_adjacency"] == 0, launches   # no analysis here
+
+    assert all(len(s.monitor.contexts) == T for s in sessions)
+    mism = tick_mismatches(fleet, sessions)
+    iso_calls = runtime_calls(lambda: sessions[0].step_batch(
+        traces[0, -FLEET_WINDOW:]))
+    for sess in sessions:
+        sess.close()
+    if mism:
+        raise AssertionError(f"fleet monitor diverged from isolated "
+                             f"sessions at (tenant, window) {mism[:8]}")
+    labelled = np.stack([t[0] for t in fleet.ticks_seen])
+    predicted = np.stack([t[2] for t in fleet.ticks_seen])
+    assert (labelled >= 0).mean() > 0.5, "the forest labelled few windows"
+
+    # a steady tick of each fleet, profiled: the last window again, after
+    # two unprofiled repeats, so no tenant sees a transition or a new
+    # label and the tick is the monitor step and its bookkeeping alone.
+    # Launches per tick at S = 8 and S = 256, the tick's busy time and
+    # idle share, and its syncs and copies.
+    last = traces[:, -FLEET_WINDOW:]
+    for f, x in ((small, last[:8]), (fleet, last)):
+        f.ingest(x)
+        f.ingest(x)
+    plans = fleet.stats.plans
+    prof_small = device_profile(lambda: small.ingest(last[:8]))
+    prof = device_profile(lambda: fleet.ingest(last))
+    calls = runtime_calls(lambda: fleet.ingest(last))
+    assert fleet.stats.plans == plans, "a profiled tick planned"
+    emit("profile", what="fleet tick S=8", **prof_small)
+    emit("profile", what=f"fleet tick S={S}", **prof)
+    assert prof_small["trace_complete"] and prof["trace_complete"], \
+        (prof_small, prof)
+    assert prof_small["launches"] == prof["launches"], \
+        (prof_small["launches"], prof["launches"])
+    assert calls["stream_syncs"] == 1 and calls["copies"] == 5, calls
+    rec = {"tenants": S, "windows_per_tenant": T,
+           "retention": fleet.ring.capacity,
+           "ring_bytes": fleet.ring.mean.nbytes + fleet.ring.var.nbytes
+           + fleet.ring.label.nbytes,
+           "fleet_s": fleet_s, "isolated_s": iso_s,
+           "fleet_windows_per_s": S * T / fleet_s,
+           "isolated_windows_per_s": S * T / iso_s,
+           "speedup": iso_s / fleet_s,
+           "dispatches": dispatches,
+           "launches_per_tick": {"S=8": prof_small["launches"],
+                                 f"S={S}": prof["launches"]},
+           "tick_runtime": calls, "isolated_step_runtime": iso_calls,
+           "tick_busy_s": prof["device_busy_s"],
+           "tick_idle_share": prof["idle_share"],
+           "labelled_frac": float((labelled >= 0).mean()),
+           # a prediction needs 16 labelled windows in a row; segments of
+           # 8 windows between transitions give none here (fleet_parity's
+           # 30-window segments do)
+           "predicted_frac": float((predicted >= 0).mean()),
+           "parity": "labels, flags and predictions bit-equal"}
+    emit("fleet_ingest", **rec)
+    return rec
+
+
+def phase_fleet_parity(dev) -> dict:
+    """``bench_fleet.py``'s ``_parity_transfer`` at full size: 8 tenants
+    with simulator executors and cross-tenant transfer, against 8 isolated
+    sessions on the same seeded traces."""
+    S = FLEET_PARITY_TENANTS
+    base = KermitConfig(monitor=MonitorConfig(window_size=FLEET_WINDOW),
+                        analysis=AnalysisConfig(interval=24))
+
+    def executor(t):
+        return SimulatorExecutor(FLEET_PARITY_SCHED, window_size=FLEET_WINDOW,
+                                 seed=t, device=dev)
+    seen, analyses = [], []
+    with dbscan_inputs(seen), count_calls(A.KermitAnalyser, "run",
+                                          analyses):
+        reset_counters()
+        t0 = time.perf_counter()
+        sessions = []
+        for s in range(S):
+            sess = KermitSession(base, executor=executor(s), device=dev)
+            sess.run()
+            sessions.append(sess)
+        iso_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet = record_ticks(KermitFleet(
+            FleetConfig(tenants=S, base=base, transfer=True),
+            executors=executor, device=dev))
+        fleet.run()
+        fleet_s = time.perf_counter() - t0
+        launches = counters()
+
+    mism = [f"tenant {s}: window {k}" for s, k in
+            tick_mismatches(fleet, sessions)]
+    for s, sess in enumerate(sessions):
+        if not np.array_equal(sess.monitor.label_log,
+                              fleet.ring.ordered(s)[2]):
+            mism.append(f"tenant {s}: labels")
+        st = sorted(e.window_id for e in sess.events
+                    if e.kind == "transition")
+        ft = sorted(e.window_id for e in fleet.events
+                    if e.kind == "transition" and e.tenant == s)
+        if st != ft:
+            mism.append(f"tenant {s}: transition windows")
+        if sess.current != fleet.current[s]:
+            mism.append(f"tenant {s}: committed winner")
+        view = fleet.tenant_db(s)
+        for label, r in sorted(sess.db.records.items()):
+            fr = view.records.get(label)
+            if fr is None or (r.config, r.has_optimal) != \
+                    (fr.config, fr.has_optimal):
+                mism.append(f"tenant {s}: label {label} stored config")
+    if mism:
+        raise AssertionError("fleet decisions diverged from isolated "
+                             "sessions: " + "; ".join(mism[:6]))
+    st = fleet.stats
+    iso_evals = sum(s.plugin.stats.evaluations for s in sessions)
+    fleet_evals = sum(fleet.plugin_stats(t).evaluations for t in range(S))
+    assert st.warm_transfers >= 1, vars(st)
+    assert st.fleet_evals_saved >= 1, vars(st)
+    assert fleet_evals <= iso_evals, (fleet_evals, iso_evals)
+    assert len(analyses) == len(seen) > 0, (len(analyses), len(seen))
+    if dev.type == "cuda":
+        assert launches["nbr_adjacency"] == len(analyses), launches
+        assert launches["pairdist"] == launches["flash_attention"] == \
+            launches["ssd_scan"] == 0, launches
+    for sess in sessions:
+        sess.close()
+    preds = np.stack([t[2] for t in fleet.ticks_seen])
+    assert (preds >= 0).any(), "no tenant's LSTM predicted"
+    rec = {"tenants": S, "parity": "bit-equal",
+           "predictions_compared": int((preds >= 0).sum()),
+           "warm_transfers": st.warm_transfers,
+           "fleet_evals_saved": st.fleet_evals_saved,
+           "scalar_evaluations": iso_evals, "fleet_evaluations": fleet_evals,
+           "analyses": st.analyses, "plans": st.plans,
+           "dispatches": st.dispatches, "ticks": st.ticks,
+           "analyses_run": len(analyses),
+           "kernel_launches": launches["nbr_adjacency"],
+           "fleet_s": fleet_s, "isolated_s": iso_s,
+           "reference_BENCH_fleet": FLEET_REFERENCE}
+    emit("fleet_parity", **rec)
+    return {"launches": launches["nbr_adjacency"],
+            "parity": check_main_path("fleet_parity", seen, dev)}
+
+
+def fig10_metrics(labels, gt) -> tuple[float, float]:
+    """``bench_clustering.py``'s Awt and purity."""
+    mask = labels >= 0
+    if mask.sum() == 0:
+        return 0.0, 0.0
+    purity_n = 0
+    for c in np.unique(labels[mask]):
+        sub = gt[mask][labels[mask] == c]
+        purity_n += np.unique(sub, return_counts=True)[1].max()
+    n_true = len(np.unique(gt[gt >= 0]))
+    return (1.0 if len(np.unique(labels[mask])) == n_true else 0.0,
+            purity_n / mask.sum())
+
+
+def phase_clustering(dev, n_seeds: int = 6) -> dict:
+    """``bench_clustering.py`` (the paper's Fig. 10) through the port on
+    the card: DBSCAN, kmeans at the true class count and two above it, and
+    single-link over six seeded window series.  The ε-neighbour kernel
+    runs once per DBSCAN and once per single-link."""
+    seen = []
+    algs = {
+        "dbscan": lambda x, k: (0.35, 4),
+        "kmeans_true_k": lambda x, k: k,
+        "kmeans_k_plus2": lambda x, k: k + 2,
+        "single_link": lambda x, k: (0.5, 1),
+    }
+    scores = {a: ([], []) for a in algs}
+    kmeans_cpu_equal = True
+    reset_counters()
+    t0 = time.perf_counter()
+    for seed in range(n_seeds):
+        sched = random_schedule(6, seed=seed + 10,
+                                subset=["dense_train", "decode_serve",
+                                        "long_prefill", "moe_train"])
+        sim = generate(sched, window_size=24, seed=seed,
+                       transition_windows=0)
+        gt = sim.window_labels
+        x = np.asarray(sim.windows.mean, np.float32)
+        k_true = len(np.unique(gt[gt >= 0]))
+        for name, arg in algs.items():
+            a = arg(x, k_true)
+            if name.startswith("kmeans"):
+                labels = kmeans(x, a, device=dev)
+                kmeans_cpu_equal &= bool(np.array_equal(
+                    labels, kmeans(x, a, device="cpu")))
+            else:
+                labels = (dbscan(x, eps=a[0], min_pts=a[1], device=dev)
+                          if name == "dbscan" else
+                          agglomerative_single_link(x, a[0], device=dev))
+                seen.append((x, a[0], a[1], labels))
+            awt, pur = fig10_metrics(np.asarray(labels), gt)
+            scores[name][0].append(awt)
+            scores[name][1].append(pur)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    assert len(seen) == 2 * n_seeds
+    if dev.type == "cuda":
+        assert launches["nbr_adjacency"] == len(seen), launches
+    rec = {name: {"awt": float(np.mean(a)), "purity": float(np.mean(p))}
+           for name, (a, p) in scores.items()}
+    emit("clustering", seeds=n_seeds, seconds=seconds,
+         kernel_launches=launches["nbr_adjacency"],
+         kmeans_labels_equal_cpu=kmeans_cpu_equal, **rec)
+    return {"launches": launches["nbr_adjacency"],
+            "parity": check_main_path("clustering", seen, dev)}
+
+
 def release_memory() -> None:
     """Return the memory of engines the caller has dropped."""
     gc.collect()
@@ -2368,9 +2761,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_plan_model(dev)
     emit("phase_seconds", of="plan_model", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_fleet_ingest(dev)
+    emit("phase_seconds", of="fleet_ingest",
+         seconds=time.perf_counter() - t0)
+    release_memory()
+    t0 = time.perf_counter()
+    fleet = phase_fleet_parity(dev)
+    emit("phase_seconds", of="fleet_parity",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    clustering = phase_clustering(dev)
+    emit("phase_seconds", of="clustering", seconds=time.perf_counter() - t0)
 
     main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"] \
-        + trained["nbr_parity"] + scen["parity"] + durable["parity"]
+        + trained["nbr_parity"] + scen["parity"] + durable["parity"] \
+        + fleet["parity"] + clustering["parity"]
     B, S = MAIN_SHAPE
     fl = timed[MAIN_SHAPE]
     sd = timed_ssd[("mamba2-1.3b", B, S)]
@@ -2380,7 +2786,9 @@ def main() -> int:
                     "serving_ssm": served_ssm["launches"]["nbr_adjacency"],
                     "training": trained["launches"]["nbr_adjacency"],
                     "scenarios": scen["launches"],
-                    "durable_history": durable["launches"]}
+                    "durable_history": durable["launches"],
+                    "fleet_parity": fleet["launches"],
+                    "clustering": clustering["launches"]}
     flash_by_phase = {"serving": served["launches"]["flash_attention"],
                       "hybrid": hybrid["launches"]["flash_attention"],
                       "training": trained["launches"]["flash_attention"]}

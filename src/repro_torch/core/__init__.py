@@ -6,12 +6,11 @@ Knowledge: knowledge (WorkloadDB).  Substrate: windows, simulator.
 
 Programs drive them through the ``repro_torch.kermit`` facade.  The
 ``AutonomicManager`` exported here is the deprecated pre-facade shim.
-``kmeans`` is not ported (ROADMAP).
 """
 from repro_torch.core.windows import (FEATURES, NUM_FEATURES, WindowSeries,
                                       make_windows)
 from repro_torch.core.change_detector import ChangeDetector, welch_t
-from repro_torch.core.dbscan import agglomerative_single_link, dbscan
+from repro_torch.core.dbscan import agglomerative_single_link, dbscan, kmeans
 from repro_torch.core.characterize import characterize, l2_drift
 from repro_torch.core.forest import RandomForest, ForestConfig
 from repro_torch.core.lstm import WorkloadPredictor, PredictorConfig

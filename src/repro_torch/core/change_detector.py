@@ -59,9 +59,11 @@ def _t_crit(dof, alpha: float):
     z = _f32_sqrt(2.0) * _erfinv(1.0 - alpha)
     c1 = z * z + _F32(1.0)
     # a 0-dim tensor numerator keeps this a true division (a Python scalar
-    # over a tensor would be computed as a reciprocal times the scalar)
-    q = torch.as_tensor(c1, device=dof.device) / (
-        4.0 * torch.clamp_min(dof, 1.0))
+    # over a tensor would be computed as a reciprocal times the scalar);
+    # filled on the device, not copied from the host, so a monitor step
+    # makes no synchronising host-to-device copy
+    q = torch.full((), float(c1), dtype=torch.float32,
+                   device=dof.device) / (4.0 * torch.clamp_min(dof, 1.0))
     return float(z) * (1.0 + q)
 
 

@@ -19,7 +19,9 @@ Port of ``repro/core/dbscan.py``.  Three paths share one semantics:
 All yield identical labels: core points take the minimum index of their
 core-connected component, border points adopt the smallest core-neighbour
 label, noise is -1, and clusters are renumbered 0..k-1 in root order.
-``kmeans`` (the Fig-10 baseline, off the main path) is queued in ROADMAP.
+
+``kmeans`` is the Fig-10 baseline clusterer (off the main path): plain
+torch ops, its initial centroids drawn by ``_kmeans_draws``.
 """
 from __future__ import annotations
 
@@ -164,3 +166,29 @@ def agglomerative_single_link(x, dist_thresh: float, impl: str = "auto",
     with ``min_pts=1`` (every point is core, there is no noise)."""
     return dbscan(x, eps=float(dist_thresh), min_pts=1, impl=impl,
                   device=device)
+
+
+def _kmeans_draws(seed: int, n: int, k: int):
+    """``k`` distinct initial centroid indices in [0, n), from a CPU
+    generator seeded with ``seed`` (the card and the CPU draw the same)."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.randperm(n, generator=g)[:k]
+
+
+def kmeans(x, k: int, iters: int = 50, seed: int = 0, *,
+           device=None) -> np.ndarray:
+    """Baseline clusterer for the Fig-10 comparison: ``iters`` Lloyd steps
+    from ``k`` distinct points, an emptied cluster keeping its centroid.
+    ``device``: as ``dbscan``'s."""
+    x = _as_points(x, device)
+    idx = _kmeans_draws(seed, x.shape[0], k).to(x.device)
+    cent = x[idx]
+    for _ in range(iters):
+        d2 = torch.sum((x[:, None] - cent[None]) ** 2, -1)
+        oh = torch.nn.functional.one_hot(torch.argmin(d2, 1), k).to(
+            torch.float32)
+        tot = oh.T @ x
+        cnt = oh.sum(0)[:, None]
+        cent = torch.where(cnt > 0, tot / torch.clamp_min(cnt, 1), cent)
+    d2 = torch.sum((x[:, None] - cent[None]) ** 2, -1)
+    return torch.argmin(d2, 1).cpu().numpy()

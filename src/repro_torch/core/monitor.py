@@ -17,15 +17,21 @@ predicted labels at t+1 / t+5 / t+10.  Two paths:
 
 Both emit identical labels, flags and predictions.  Per-window state
 lives in a preallocated ``WindowRing``, contexts in a bounded deque, and
-JSONL context writes are buffered and interval-flushed.  The fleet step
-is queued in ROADMAP.
+JSONL context writes are buffered and interval-flushed.
+
+``fleet_monitor_step`` is the fleet's step: ``torch.func.vmap`` of the
+same ``_monitor_step`` over a leading tenant axis, one window per tenant,
+with the fallback to a per-tenant loop switched off (an op without a
+batching rule raises instead of launching S kernels).
 """
 from __future__ import annotations
 
 import json
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import asdict, dataclass, field
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -98,6 +104,50 @@ def _monitor_step(mean, var, prev_mean, prev_var, has_prev: bool,
         preds = torch.full((len(HORIZONS), B), UNKNOWN, dtype=torch.int32,
                            device=dev)
     return trans, labels, preds
+
+
+@contextmanager
+def _no_vmap_fallback():
+    """Make ``torch.func.vmap`` raise on an op with no batching rule,
+    where it would otherwise run a Python loop over the batch with only a
+    warning."""
+    was = torch._C._functorch._is_vmap_fallback_enabled()
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(was)
+
+
+def fleet_monitor_step(mean, var, prev_mean, prev_var, has_prev: bool,
+                       hist_carry, log_len: int, clf_params, pred_params,
+                       mask, *, n: int, alpha: float, quorum: float,
+                       depth: int, pred_window: int, pred_classes: int):
+    """The batched-leading-axis twin of ``_monitor_step``: one window for
+    each of S tenants in one step.
+
+    ``mean``/``var`` are (S, 1, F) — each tenant contributes a B=1 batch —
+    ``prev_mean``/``prev_var`` (S, F) per-tenant Welch carries and
+    ``hist_carry`` (S, pred_window - 1) per-tenant label histories.
+    ``has_prev``/``log_len`` are shared (fleet tenants advance in
+    lockstep), as is ``mask``.  Classifier/predictor params are either None
+    (shared absence) or dicts of tensors stacked along a leading tenant
+    axis; tenants whose models differ in shape are separate cohorts
+    (``KermitFleet`` groups them).
+
+    ``vmap`` of the very same ``_monitor_step`` body keeps each tenant's
+    arithmetic that of a scalar monitor driven one window at a time.
+    Returns trans (S, 1), labels (S, 1), preds (S, 3, 1)."""
+    fn = partial(_monitor_step, n=n, alpha=alpha, quorum=quorum, depth=depth,
+                 pred_window=pred_window, pred_classes=pred_classes)
+    dims = (0, 0, 0, 0, None, 0, None,
+            None if clf_params is None else 0,
+            None if pred_params is None else 0,
+            None)
+    with _no_vmap_fallback():
+        return torch.func.vmap(fn, in_dims=dims)(
+            mean, var, prev_mean, prev_var, has_prev, hist_carry, log_len,
+            clf_params, pred_params, mask)
 
 
 class KermitMonitor:

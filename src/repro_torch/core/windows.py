@@ -1,6 +1,6 @@
 """Observation windows and the telemetry feature vector (port of
-``repro/core/windows.py``; numpy only — ``BatchedWindowRing`` belongs to
-the fleet and is queued in ROADMAP).
+``repro/core/windows.py``; numpy only, copied: ``WindowRing`` for one
+session, ``BatchedWindowRing`` for the fleet's S lockstep tenants).
 
 The paper's feature vector is built from container performance metrics
 (cpu/io/net); our TPU adaptation uses step telemetry of the same
@@ -148,6 +148,110 @@ class WindowRing:
     def from_state(cls, meta: dict, arrays: dict) -> "WindowRing":
         ring = cls(int(meta["capacity"]), int(meta["n_features"]),
                    int(meta["count"]))
+        ring.mean[:] = np.asarray(arrays["mean"], np.float32)
+        ring.var[:] = np.asarray(arrays["var"], np.float32)
+        ring.label[:] = np.asarray(arrays["label"], np.int32)
+        ring.total = int(meta["total"])
+        return ring
+
+
+class BatchedWindowRing:
+    """A ``WindowRing`` with a leading tenant axis: S lockstep rings stored
+    as one struct-of-arrays block (``mean``/``var``: (S, capacity, F),
+    ``label``: (S, capacity)).
+
+    All tenants advance together — ``push_tick`` writes one window per
+    tenant and bumps a single monotone ``total`` — so the head position,
+    history length and eviction horizon are shared across the fleet.  Each
+    per-tenant read (``ordered``/``series``/``last_labels`` row ``t``)
+    reproduces exactly what a standalone ``WindowRing`` fed the same window
+    sequence would return, which is what makes fleet decisions bit-comparable
+    to scalar sessions (``tests/test_torch_fleet_*.py``)."""
+
+    def __init__(self, tenants: int, capacity: int, n_features: int,
+                 count: int):
+        if tenants < 1:
+            raise ValueError("BatchedWindowRing needs at least one tenant")
+        if capacity < 2:
+            raise ValueError("BatchedWindowRing capacity must be >= 2")
+        self.tenants = int(tenants)
+        self.capacity = int(capacity)
+        self.count = int(count)            # raw samples per window
+        self.mean = np.zeros((self.tenants, self.capacity, n_features),
+                             np.float32)
+        self.var = np.zeros((self.tenants, self.capacity, n_features),
+                            np.float32)
+        self.label = np.full((self.tenants, self.capacity), -1, np.int32)
+        self.total = 0                     # lockstep ticks pushed (monotone)
+
+    def __len__(self):
+        return min(self.total, self.capacity)
+
+    def push_tick(self, mean, var, label):
+        """Write one window per tenant: mean/var (S, F), label (S,)."""
+        h = self.total % self.capacity
+        self.mean[:, h] = mean
+        self.var[:, h] = var
+        self.label[:, h] = label
+        self.total += 1
+
+    def last_window(self):
+        """The most recent (mean, var) per tenant — the fleet's Welch
+        carry, ((S, F), (S, F)).  Requires at least one pushed tick."""
+        if self.total == 0:
+            raise ValueError("BatchedWindowRing is empty")
+        h = (self.total - 1) % self.capacity
+        return self.mean[:, h], self.var[:, h]
+
+    def last_labels(self, k: int) -> np.ndarray:
+        """Last ``k`` labels per tenant, chronological, front-padded with -1
+        — (S, k), the batched twin of ``WindowRing.last_labels``."""
+        if k <= 0:
+            return np.zeros((self.tenants, 0), np.int32)
+        if k > self.capacity:
+            raise ValueError(f"last_labels({k}) exceeds retention "
+                             f"{self.capacity}")
+        got = min(k, len(self))
+        out = np.full((self.tenants, k), -1, np.int32)
+        if got:
+            idx = (self.total - got + np.arange(got)) % self.capacity
+            out[:, k - got:] = self.label[:, idx]
+        return out
+
+    def ordered(self, tenant: int, copy: bool = False):
+        """Chronological (mean, var, label) for one tenant — same view vs
+        copy semantics as ``WindowRing.ordered``."""
+        n = len(self)
+        if self.total <= self.capacity:
+            m = self.mean[tenant, :n]
+            v = self.var[tenant, :n]
+            l = self.label[tenant, :n]
+            return (m.copy(), v.copy(), l.copy()) if copy else (m, v, l)
+        h = self.total % self.capacity
+        return (np.concatenate([self.mean[tenant, h:],
+                                self.mean[tenant, :h]]),
+                np.concatenate([self.var[tenant, h:], self.var[tenant, :h]]),
+                np.concatenate([self.label[tenant, h:],
+                                self.label[tenant, :h]]))
+
+    def series(self, tenant: int, copy: bool = False) -> "WindowSeries":
+        m, v, _ = self.ordered(tenant, copy)
+        return WindowSeries(m, v, self.count)
+
+    # -- durable state (mirrors WindowRing.export_state) ---------------------
+
+    def export_state(self) -> tuple[dict, dict]:
+        meta = {"tenants": self.tenants, "capacity": self.capacity,
+                "count": self.count, "n_features": int(self.mean.shape[2]),
+                "total": self.total}
+        arrays = {"mean": self.mean.copy(), "var": self.var.copy(),
+                  "label": self.label.copy()}
+        return meta, arrays
+
+    @classmethod
+    def from_state(cls, meta: dict, arrays: dict) -> "BatchedWindowRing":
+        ring = cls(int(meta["tenants"]), int(meta["capacity"]),
+                   int(meta["n_features"]), int(meta["count"]))
         ring.mean[:] = np.asarray(arrays["mean"], np.float32)
         ring.var[:] = np.asarray(arrays["var"], np.float32)
         ring.label[:] = np.asarray(arrays["label"], np.int32)

@@ -1,10 +1,10 @@
 """repro_torch.kermit — the public facade of the port.
 
-The ported subset of ``repro.kermit.__all__``: the config tree, the
-session (with durable checkpoints), the executors and their chaos and
-resilience layers, the supervisor, the event vocabulary and autonomic
-serving.  The fleet (``FleetConfig``, ``FleetStats``, ``KermitFleet``)
-arrives with a later slice (ROADMAP queue A).
+The reference's whole facade, ``__all__`` equal to ``repro.kermit``'s:
+the config tree, the session (with durable checkpoints), the fleet
+(``KermitFleet`` with its shared knowledge base), the executors and their
+chaos and resilience layers, the supervisor, the event vocabulary and
+autonomic serving.
 
     from repro_torch.kermit import KermitConfig, KermitSession, SimulatorExecutor
     with KermitSession(cfg, executor=SimulatorExecutor(schedule)) as s:
@@ -22,6 +22,7 @@ from repro_torch.kermit.events import EVENT_KINDS, AutonomicEvent, EventKind
 from repro_torch.kermit.executor import (BatchExecutor, CallableExecutor,
                                          Executor, ExecutorObjective,
                                          SimulatorExecutor)
+from repro_torch.kermit.fleet import FleetConfig, FleetStats, KermitFleet
 from repro_torch.kermit.session import KermitSession
 from repro_torch.kermit.serving import (SERVE_SPACE, ServeConfig, ServeEngine,
                                         ServeExecutor, TrafficGenerator,
@@ -40,8 +41,11 @@ __all__ = [
     "ExecConfig",
     "Executor",
     "ExecutorObjective",
+    "FleetConfig",
+    "FleetStats",
     "IMPL_CHOICES",
     "KermitConfig",
+    "KermitFleet",
     "KermitSession",
     "KermitSupervisor",
     "KnowledgeConfig",

@@ -3,11 +3,11 @@
 Port of ``repro/scenarios/runner.py``.  It reads the port's own copy of the
 manifest (``repro_torch/scenarios/manifest.json``, byte-equal to the
 reference's) and runs every scenario on one device (``device=None``: CUDA;
-``--device cpu`` on the command line).  The kinds ``session``, ``crash``
-and ``serving`` are ported.  ``fleet`` waits for the fleet slice (ROADMAP
-A4), ``elastic`` and ``elastic_session`` for the distribution slice (A7):
-a run that names one of them raises ``NotImplementedError`` before any
-scenario starts, so it is never counted as passed or skipped.
+``--device cpu`` on the command line).  The kinds ``session``, ``crash``,
+``serving`` and ``fleet`` are ported.  ``elastic`` and ``elastic_session``
+wait for the distribution slice (ROADMAP A7): a run that names one of them
+raises ``NotImplementedError`` before any scenario starts, so it is never
+counted as passed or skipped.
 
 Each scenario in ``manifest.json`` declares a simulated workload schedule, a
 fault schedule (``repro_torch.kermit.chaos`` specs), an optional resilience
@@ -27,7 +27,12 @@ paper's "without human intervention" claim into pass/fail data:
                         committed winners, event stream)
   min_restores          the supervisor actually survived this many deaths
   min_checkpoints       ... and took this many snapshots doing it
-  (the fleet's and the elastic kinds' gates come with those kinds)
+  min_warm_started      a fleet tenant's search was warm-started from a
+                        class another tenant discovered and tuned
+  min_fleet_evals_saved ... and those transfers saved evaluations
+  min_evals_saved_vs_isolated  the fleet spent fewer evaluations than S
+                        isolated sessions on the same traces
+  (the elastic kinds' gates come with those kinds)
 
 Every run writes ``<scenario>--seed<k>--<impl>.json`` (schema-versioned,
 self-describing: seed + scenario spec + impl recorded) under
@@ -49,8 +54,9 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.kermit import (AnalysisConfig, ChaosExecutor, CrashFault,
-                                EventKind, ExecConfig, KermitConfig,
-                                KermitSession, KermitSupervisor,
+                                EventKind, ExecConfig, FleetConfig,
+                                KermitConfig, KermitFleet, KermitSession,
+                                KermitSupervisor,
                                 KnowledgeConfig, MonitorConfig, PlanConfig,
                                 ResilientExecutor, SimulatorExecutor,
                                 fault_from_dict)
@@ -306,14 +312,74 @@ def _serving_metrics(events, summary: dict, final: dict, ex) -> dict:
     }
 
 
+def _run_fleet_scenario(spec: dict, *, seed: int, impl: str,
+                        device) -> dict:
+    """Fleet-scale MAPE-K with cross-tenant warm-start transfer: S tenants
+    with overlapping workload classes run through ONE ``KermitFleet``
+    (shared knowledge base, tenant-tagged records).  The gates check that at
+    least one tenant's search was warm-started from a class another tenant
+    discovered and tuned, and that the transfer actually saved evaluation
+    work versus S isolated sessions on the same traces."""
+    ws = int(spec.get("window_size", 16))
+    S = int(spec.get("tenants", 2))
+    sched = [tuple(s) for s in spec["schedule"]]
+    base = _build_config(spec, impl)
+
+    def make_executor(t):
+        return SimulatorExecutor(sched, window_size=ws, seed=seed + t,
+                                 drift=float(spec.get("drift", 0.0)),
+                                 device=device)
+
+    fleet = KermitFleet(
+        FleetConfig(tenants=S, base=base,
+                    transfer=bool(spec.get("transfer", True))),
+        executors=make_executor, device=device)
+    events = []
+    fleet.subscribe(None, events.append)
+    fleet.run()
+    summary = fleet.summary()
+
+    # the external check on the transfer win: the same S streams through S
+    # isolated sessions (private DBs, no transfer possible)
+    isolated_evals = 0
+    for t in range(S):
+        with KermitSession(base, executor=make_executor(t),
+                           device=device) as sess:
+            sess.run()
+            isolated_evals += sess.plugin.stats.evaluations
+
+    by_kind = Counter(e.kind for e in events)
+    st = fleet.stats
+    return {
+        "windows": summary["windows"],
+        "tenants": S,
+        "events": {k: int(v) for k, v in sorted(by_kind.items())},
+        "retunes": int(by_kind.get(EventKind.RETUNE.value, 0)),
+        "known_workloads": summary["known_workloads"],
+        "searches": int(summary["plugin"]["global_searches"]
+                        + summary["plugin"]["local_searches"]),
+        "reused": summary["plugin"]["reused"],
+        "evaluations": summary["plugin"]["evaluations"],
+        "failed_searches": summary["plugin"]["failed_searches"],
+        "monitor_dispatches": st.dispatches,
+        "warm_transfers": st.warm_transfers,
+        "fleet_evals_saved": st.fleet_evals_saved,
+        "isolated_evaluations": int(isolated_evals),
+        "evals_saved_vs_isolated":
+            int(isolated_evals - summary["plugin"]["evaluations"]),
+        "recovery_ratio": None,
+        "final_tunables": [t.as_dict() for t in fleet.current],
+    }
+
+
 _KINDS = {"session": _run_session_scenario,
+          "fleet": _run_fleet_scenario,
           "crash": _run_crash_restore_scenario,
           "serving": _run_serving_scenario}
 
 # the manifest's kinds the port does not run yet, and the ROADMAP item each
 # waits for
 UNPORTED_KINDS = {
-    "fleet": "ROADMAP A4 (fleet: KermitFleet, FleetConfig, FleetStats)",
     "elastic": "ROADMAP A7 (distribution: a device mesh and "
                "elastic_restore)",
     "elastic_session": "ROADMAP A7 (distribution: a device mesh and "
@@ -400,6 +466,22 @@ def _eval_gates(name: str, spec: dict, metrics: dict, *,
         gate("max_human_calls",
              metrics.get("human_calls", 0) <= g["max_human_calls"],
              metrics.get("human_calls", 0), g["max_human_calls"])
+    if "min_warm_started" in g:
+        gate("min_warm_started",
+             metrics.get("warm_transfers", 0) >= g["min_warm_started"],
+             metrics.get("warm_transfers", 0), g["min_warm_started"])
+    if "min_fleet_evals_saved" in g:
+        gate("min_fleet_evals_saved",
+             metrics.get("fleet_evals_saved", 0)
+             >= g["min_fleet_evals_saved"],
+             metrics.get("fleet_evals_saved", 0),
+             g["min_fleet_evals_saved"])
+    if "min_evals_saved_vs_isolated" in g:
+        gate("min_evals_saved_vs_isolated",
+             metrics.get("evals_saved_vs_isolated", 0)
+             >= g["min_evals_saved_vs_isolated"],
+             metrics.get("evals_saved_vs_isolated", 0),
+             g["min_evals_saved_vs_isolated"])
     return gates
 
 

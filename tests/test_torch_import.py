@@ -81,6 +81,19 @@ art = run_scenario("crash_restore",
                    load_manifest()["scenarios"]["crash_restore"],
                    device="cpu")
 assert art["ok"] and art["metrics"]["restores"] == 1, art["gates"]
+from repro_torch.kermit import FleetConfig, KermitFleet
+from repro_torch.core import kmeans
+fleet_cfg = KermitConfig(monitor=MonitorConfig(window_size=8),
+                         analysis=AnalysisConfig(interval=5))
+fleet = KermitFleet(FleetConfig(tenants=2, base=fleet_cfg), device="cpu",
+                    executors=lambda t: SimulatorExecutor(
+                        [("dense_train", 4), ("decode_serve", 4)],
+                        window_size=8, seed=t, device="cpu"))
+fleet.run()
+assert fleet.summary()["windows"] == 2 * (len(ex.samples) // 8)
+assert fleet.stats.dispatches >= fleet.stats.ticks > 0
+assert fleet.stats.analyses > 0
+assert kmeans(x, 2, device="cpu").shape == (40,)
 print(" ".join(names))
 print(len(names))
 """
@@ -130,6 +143,12 @@ DURABLE_SLICE = [
     "repro_torch.scenarios.runner", "repro_torch.scenarios.__main__",
 ]
 
+# modules of the fleet slice
+FLEET_SLICE = [
+    "repro_torch.kermit.fleet", "repro_torch.core.windows",
+    "repro_torch.core.monitor", "repro_torch.core.dbscan",
+]
+
 
 def test_every_module_imports_without_jax_or_reference():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN],
@@ -143,6 +162,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert set(SEED_SLICE) <= set(walked)
     assert set(TRAIN_SLICE) <= set(walked)
     assert set(DURABLE_SLICE) <= set(walked)
+    assert set(FLEET_SLICE) <= set(walked)
 
 
 _FORBIDDEN = re.compile(
@@ -157,14 +177,13 @@ def test_no_source_file_imports_jax_or_reference():
     assert offenders == []
 
 
-def test_kermit_api_is_reference_minus_fleet():
-    """``repro_torch.kermit.__all__`` is the reference's facade without the
-    fleet's three names, which wait for their slice."""
+def test_kermit_api_equals_reference():
+    """``repro_torch.kermit.__all__`` is the reference's facade, the fleet's
+    three names included."""
     import repro.kermit as J
     import repro_torch.kermit as K
-    fleet = {"FleetConfig", "FleetStats", "KermitFleet"}
-    assert fleet <= set(J.__all__)
-    assert K.__all__ == [n for n in J.__all__ if n not in fleet]
+    assert {"FleetConfig", "FleetStats", "KermitFleet"} <= set(K.__all__)
+    assert K.__all__ == J.__all__
     for name in K.__all__:              # restore compares class names
         ref = getattr(J, name)
         if isinstance(ref, type):

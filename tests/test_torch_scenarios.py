@@ -1,11 +1,12 @@
 """The port's scenario runner against the reference's.
 
 The manifest the port reads is its own copy, byte-equal to the
-reference's.  Every simulator-driven scenario (the ``session`` and
-``crash`` kinds) at seed 0 on the CPU, with the reference's draws injected
-into the port's fits, gives the reference's metrics and gate outcomes.
-Artifacts are schema-versioned, the module runs as a program, and the
-kinds the port does not run yet raise before any scenario starts.
+reference's.  Every simulator-driven scenario (the ``session``, ``crash``
+and ``fleet`` kinds) at seed 0 on the CPU, with the reference's draws
+injected into the port's fits, gives the reference's metrics and gate
+outcomes.  Artifacts are schema-versioned, the module runs as a program,
+the manifest's smoke subset runs, and the kinds the port does not run yet
+raise before any scenario starts.
 """
 import json
 import os
@@ -24,7 +25,8 @@ from torch_parity import reference_draws  # noqa: F401 (fixture)
 ROOT = Path(__file__).resolve().parents[1]
 MANIFEST = load_manifest()
 SIMULATED = sorted(n for n, s in MANIFEST["scenarios"].items()
-                   if s.get("kind", "session") in ("session", "crash"))
+                   if s.get("kind", "session") in ("session", "crash",
+                                                   "fleet"))
 
 
 def test_manifest_copy_byte_equal_to_reference():
@@ -33,7 +35,8 @@ def test_manifest_copy_byte_equal_to_reference():
     assert P.DEFAULT_MANIFEST != J.DEFAULT_MANIFEST
     kinds = {s.get("kind", "session") for s in MANIFEST["scenarios"].values()}
     assert kinds == set(P._KINDS) | set(UNPORTED_KINDS)
-    assert set(P._KINDS) == {"session", "crash", "serving"}
+    assert set(P._KINDS) == {"session", "crash", "serving", "fleet"}
+    assert set(UNPORTED_KINDS) == {"elastic", "elastic_session"}
 
 
 @pytest.mark.parametrize("name", SIMULATED)
@@ -87,17 +90,30 @@ def test_module_runs_as_a_program(tmp_path):
 
 
 @pytest.mark.parametrize("only,item", [
-    (["fleet_transfer"], "A4"),
     (["crash_restore", "elastic_shrink"], "A7"),
     (["elastic_shrink_midsession"], "A7"),
     (None, "A7"),                  # elastic_shrink comes first
-], ids=["fleet", "elastic_after_a_ported_one", "elastic_session", "all"])
+], ids=["elastic_after_a_ported_one", "elastic_session", "all"])
 def test_unported_kinds_raise_before_any_scenario(tmp_path, only, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         run_manifest(out_dir=tmp_path, run_id="x", only=only, device="cpu")
     assert not (tmp_path / "x").exists()        # nothing ran, nothing saved
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        run_manifest(out_dir=tmp_path, smoke=True, device="cpu")
-    for name in ("fleet_transfer", "elastic_shrink"):
+    for name in ("elastic_shrink", "elastic_shrink_midsession"):
         with pytest.raises(NotImplementedError, match="does not run yet"):
             run_scenario(name, MANIFEST["scenarios"][name], device="cpu")
+
+
+def test_smoke_subset_runs(tmp_path):
+    """The manifest's smoke subset (its CI shape), ``fleet_transfer``
+    among it, runs through and passes every gate."""
+    summary = run_manifest(out_dir=tmp_path, run_id="s", smoke=True,
+                           device="cpu")
+    assert summary["scenarios"] == MANIFEST["smoke"]["scenarios"]
+    assert "fleet_transfer" in summary["scenarios"]
+    assert summary["seeds"] == MANIFEST["smoke"]["seeds"]
+    assert summary["all_ok"] and len(summary["runs"]) == 4
+    fleet = json.loads((tmp_path / "s" /
+                        "fleet_transfer--seed0--auto.json").read_text())
+    m = fleet["metrics"]
+    assert m["tenants"] == 2 and m["warm_transfers"] >= 1
+    assert m["monitor_dispatches"] >= m["windows"] // 2
