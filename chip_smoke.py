@@ -46,23 +46,44 @@ raising (exit code != 0):
                        (``impl="legacy"``): the dense kernel once per
                        analysis, the ε-neighbour kernel never; the
                        quickstart's asserts and its RETUNE stream.
-9. ``legacy_history`` — the first 2048 windows of ``full_history``'s
+9. ``legacy_history`` — the first 1024 windows of ``full_history``'s
                        stream on the seed path (retention 4096, analysis
                        every 512 windows): the last analysis's DBSCAN
-                       over the full ring, profiled.
+                       over the full ring, profiled; its RETUNE stream
+                       equal to ``full_history``'s over those windows.
 10. ``serving``      — KERMIT tuning a live qwen2-1.5b server at full width
                        (bf16, random weights from seed 0) with
                        ``attn_impl="pallas"``: diurnal night -> day traffic
-                       through ``KermitSession`` + ``ServeExecutor``, with
-                       the asserts of ``tests/test_serving_autonomic.py``.
+                       (8 + 12 windows of 8) through ``KermitSession`` +
+                       ``ServeExecutor``, with the asserts of
+                       ``tests/test_serving_autonomic.py``.
 11. ``serving_parity``— prefill logits on the pallas route against the xla
                        route: reduced qwen2 in fp32 (asserted at 1e-4), and
-                       the full model in bf16 (printed); a profiled call.
+                       the full model in bf16 (printed); a profiled call
+                       (prompt 48, 4 new tokens).
 12. ``serving_ssm``, ``serving_ssm_parity`` — the same loop, checks and
                        profile on mamba2-1.3b (chunks of 16).
 13. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
                        few serve calls through both kernels, and a profiled
                        call.
+13a. ``serving_moe``, ``serving_moe_parity`` — the same loop, checks and
+                       profile on deepseek-moe-16b (28 layers, dense layer
+                       0, 64 routed experts top-6 and 2 shared, capacity
+                       factor 1.25), the flash kernel once per layer of
+                       each prefill; the decode steps' launches
+                       (``decode_launches``: a call less a prefill alone).
+13b. ``vlm``         — paligemma-3b at full width: serve calls at B = 2
+                       and 8 with 256 patches + 48 text tokens, the flash
+                       kernel at head_dim 256 (8 query heads on one KV
+                       head) once per layer of each prefill; a profiled
+                       call.
+13c. ``encdec``      — seamless-m4t-large-v2 at full width: serve calls at
+                       B = 2 and 8, prompt 48; no kernel of the repo
+                       launches (its attention is always the plain one).
+13d. ``decode_consistency`` — tests/test_decode_consistency.py at full
+                       width in bf16 for those three models: 4 decode
+                       steps against the forward, max |Δlogit| within
+                       ``DECODE_REL_BOUND`` of the logits' abs-max.
 14. ``training``     — KERMIT tuning a live qwen2-1.5b training job at full
                        width (bf16, random weights from seed 0): ``Trainer``
                        + ``KermitSession`` with examples/autonomic_train.py's
@@ -130,8 +151,9 @@ and ``fleet_parity`` once per analysis run, replays, reruns and isolated
 sessions included; in ``clustering`` once per DBSCAN and single-link; in
 ``fleet_ingest`` never), the attention
 kernel once per attention layer of every prefill (28 × serve calls for
-qwen2, 13 per zamba2 prefill), the SSD kernel once per SSD layer of
-every prefill (48 × serve calls for mamba2, 81 per zamba2 prefill), and
+qwen2 and deepseek, 13 per zamba2 prefill, 18 per paligemma prefill),
+the SSD kernel once per SSD layer of every prefill (48 × serve calls for
+mamba2, 81 per zamba2 prefill), and
 in training once per layer run: each forward
 pass and each remat recompute of a layer (counted, as they start), every
 one of those bf16 launches on the
@@ -992,13 +1014,15 @@ def phase_quickstart_legacy(dev, fast_events: list):
     return dense, check_dense_main_path("quickstart_legacy", seen, dev)
 
 
-def phase_legacy_history(dev, full: dict, n_windows: int = 2048,
+def phase_legacy_history(dev, full: dict, n_windows: int = 1024,
                          interval: int = 512):
     """The first ``n_windows`` of ``full_history``'s stream through the
     seed path (retention 4096, an analysis every ``interval`` windows):
-    the last analysis's DBSCAN runs the dense kernel over the full ring.
-    Half of ``full_history``'s windows: the seed LSTM loop (30 epochs over
-    every batch) took the phase past 90 s at 4096."""
+    the last analysis's DBSCAN runs the dense kernel over the full ring,
+    and the RETUNE stream equals ``full_history``'s over those windows.
+    A quarter of ``full_history``'s windows: the seed LSTM loop (30 epochs
+    over every batch) took the phase past 90 s at 4096 and 47–69 s at
+    2048."""
     config = KermitConfig(analysis=AnalysisConfig(interval=interval),
                           monitor=MonitorConfig(retention=4096),
                           impl="legacy")
@@ -1059,6 +1083,9 @@ def phase_legacy_history(dev, full: dict, n_windows: int = 2048,
                 tunables.attn_q_chunk),
          full_history=full, plugin=summary["plugin"])
     assert summary["known_workloads"] >= 2, summary
+    assert [list(r) for r in full["retunes"] if r[0] < n_windows] == [
+        [e.window_id, e.tunables["microbatches"], e.tunables["remat"],
+         e.tunables["attn_q_chunk"]] for e in retunes], (full, retunes)
     session.close()
     recs = check_dense_main_path("legacy_history", seen, dev)
 
@@ -1079,12 +1106,17 @@ ATTN_CASES = [
     (1, 256, 256, 8, 1, 32, True, 64, 50.0),
     (2, 64, 128, 4, 4, 64, False, 0, 0.0),
     (1, 96, 96, 2, 2, 128, True, 0, 30.0),
+    # paligemma-3b's heads (d = 256, 8 on one KV head), window and softcap
+    (1, 130, 130, 8, 1, 256, True, 48, 30.0),
 ]
 # Sq > Skv under a sliding window: query rows 111 and later see no key,
 # and average v over the KV as the reference pads it
 EMPTY_ROWS_CASE = (1, 200, 96, 4, 2, 32, True, 16, 0.0)
 QWEN2 = dict(H=12, K=2, d=128)            # qwen2-1.5b's attention heads
 ZAMBA2_ATTN = dict(H=32, K=32, d=112)     # zamba2-7b's shared block
+DEEPSEEK = dict(H=16, K=16, d=128)        # deepseek-moe-16b's attention
+PALIGEMMA = dict(H=8, K=1, d=256)         # paligemma-3b's attention
+VLM_SHAPE = (8, 304)                      # 256 patches + 48 text tokens
 MAIN_SHAPE = (8, 48)                       # (B, S): a day-phase prefill
 # the serving path's prefills: serve_batch in {2, 4, 8}, prompts of 16
 # (night) and 48 (day) tokens; then two long prompts
@@ -1197,6 +1229,16 @@ def phase_kernel_flash(dev) -> dict:
         rec[f"max_abs_err_{str(dtype)[6:]}"] = compare_flash(q, k, v)
     emit("kernel_flash", case="zamba2-7b", dtype="bf16", **rec)
     timed["zamba2"] = rec
+    # the serving prefills of deepseek-moe-16b and paligemma-3b
+    for key, (B, S), heads in (("deepseek", MAIN_SHAPE, DEEPSEEK),
+                               ("paligemma", VLM_SHAPE, PALIGEMMA)):
+        rec = time_flash(dev, B, S, heads)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(dev, B, S, S, dtype=dtype, seed=4,
+                                  **heads)
+            rec[f"max_abs_err_{str(dtype)[6:]}"] = compare_flash(q, k, v)
+        emit("kernel_flash", case=key, dtype="bf16", **heads, **rec)
+        timed[key] = rec
     return timed
 
 
@@ -1334,6 +1376,37 @@ SSM_INITIAL = Tunables(attn_impl="pallas", serve_batch=8, cache_len=64,
                        ssm_chunk=SSD_CHUNK)
 SSM_SPACE = {"serve_batch": [2, 4, 8], "ssm_chunk": [SSD_CHUNK]}
 HYBRID_TUN = Tunables(attn_impl="pallas", cache_len=64, ssm_chunk=SSD_CHUNK)
+# deepseek-moe-16b: slice 2's tunables and search; capacity_factor stays at
+# its default 1.25 and out of the search (it changes what the model
+# computes, not only how fast)
+MOE_INITIAL = SERVE_INITIAL
+VLM_TUN = Tunables(attn_impl="pallas", cache_len=64)
+ENCDEC_TUN = Tunables(attn_impl="pallas", cache_len=64)
+
+# the diurnal schedule of every serving phase: the fewest windows that keep
+# each gate (analyses at windows 5, 11 and 17; the day's DRIFT and RETUNE
+# at 17, the re-plan applied at 18, two day windows after it)
+SERVE_NIGHT, SERVE_DAY = 8, 12
+# the decode steps of a profiled serve call: reading a trace takes ~0.45 ms
+# an event on the card's host, 20–47 s for a serve call of 16 new tokens
+PROFILE_GEN = 4
+
+
+def new_engine(cfg, initial: Tunables, dev):
+    """``ServeEngine`` for ``cfg`` (random weights from seed 0), its init
+    seconds and its peak device memory (the fp32 draw of the largest
+    stacked leaf beside the cast weights)."""
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, seed=0, initial=initial, device=dev)
+    torch.cuda.synchronize()
+    return eng, {"params_init_s": time.perf_counter() - t0,
+                 "params_gb": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(eng.params)) / 1e9,
+                 "params_init_peak_gb":
+                     torch.cuda.max_memory_allocated() / 1e9}
+
 
 def summary(rec: dict) -> dict:
     """The numbers of one timed shape that the kernels line carries."""
@@ -1441,12 +1514,10 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     ``KermitSession`` + ``ServeExecutor``, with the asserts of
     tests/test_serving_autonomic.py.  ``per_call``: launches of each
     kernel per serve call (its layers that run it once per prefill)."""
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, seed=0, initial=initial, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    eng, init = new_engine(cfg, initial, dev)
     traffic = TrafficGenerator.diurnal(window_size=8, seed=0,
-                                       night_windows=12, day_windows=12)
+                                       night_windows=SERVE_NIGHT,
+                                       day_windows=SERVE_DAY)
     ex = ServeExecutor(eng, traffic, config=ServeConfig(probe_repeats=3),
                        initial=initial)
     events, seen, reports = [], [], []
@@ -1508,7 +1579,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     by_shape = collections.defaultdict(list)
     for r in reports:
         by_shape[(r.batch, r.prompt_len)].append(r)
-    emit(phase, model=cfg.name, params_init_s=init_s, seconds=seconds,
+    emit(phase, model=cfg.name, **init, seconds=seconds,
          windows=len(wl), serve_calls=calls, decode_steps=sum(
              r.steps for r in reports), analyses=analyses,
          kernel_launches=launches,
@@ -1583,34 +1654,62 @@ def phase_serving_parity(dev, eng, phase: str, initial: Tunables) -> None:
              (gp[:, 0] == gx[:, 0]).mean()))
 
 
-def profile_serve(eng, initial: Tunables, kernel_names: dict) -> dict:
-    """One day-phase serve call (B = 8, prompt 48, 16 new tokens) under
-    the profiler; ``kernel_names``: result key -> substring of a kernel's
-    name, whose per-launch device ms are returned."""
-    B, S = MAIN_SHAPE
+def profile_serve(eng, initial: Tunables, kernel_names: dict,
+                  shape=MAIN_SHAPE, gen: int = PROFILE_GEN) -> dict:
+    """One serve call (a day-phase prefill, B = 8 and prompt 48, unless
+    ``shape`` says otherwise; ``gen`` new tokens) under the profiler;
+    ``kernel_names``: result key -> substring of a kernel's name, whose
+    per-launch device ms are returned."""
+    B, S = shape
     per_kernel = {}
-    prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=16,
+    prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=gen,
                                             tunables=initial), per_kernel)
     dev_ms = {key: [t / n for name, (n, t) in per_kernel.items()
                     if sub in name] for key, sub in kernel_names.items()}
-    emit("profile", what=f"serve call B={B} prompt={S} gen=16 "
-         f"({eng.cfg.name}, bf16, pallas)", **{f"{k}_ms": v for k, v in
-                                                dev_ms.items()}, **prof)
-    return dev_ms
+    emit("profile", what=f"serve call B={B} prompt={S} gen={gen} "
+         f"({eng.cfg.name}, bf16, {initial.attn_impl})",
+         **{f"{k}_ms": v for k, v in dev_ms.items()}, **prof)
+    return {**dev_ms, "profile": prof}
 
 
-def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
-    """zamba2-7b at full width behind ServeEngine on the pallas route: a
-    few serve calls, every SSD layer (81) and every shared-block hit (13)
-    of each prefill through the kernels, each recorded input held against
-    the plain versions; then one call under the profiler."""
-    cfg = get_config("zamba2-7b")
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, seed=0, initial=HYBRID_TUN, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    per_call = {"flash_attention": cfg.n_layers // cfg.hybrid_period,
-                "ssd_scan": cfg.n_layers}
+def launches_per_decode_step(eng, initial: Tunables, kernel_names: dict,
+                             shape=MAIN_SHAPE, gen: int = PROFILE_GEN
+                             ) -> dict:
+    """Device launches of a serve call's decode steps: the launches of
+    one call with ``gen`` new tokens less those of a prefill alone, over
+    ``gen`` (two profiled calls); with the first call's per-launch device
+    ms of ``kernel_names`` (as ``profile_serve``)."""
+    B, S = shape
+    dev_ms = profile_serve(eng, initial, kernel_names, shape, gen)
+    full = dev_ms.pop("profile")
+    pre = profile_serve(eng, initial, {}, shape, 0)["profile"]
+    step = (full["launches"] - pre["launches"]) / gen
+    busy = [p.get("device_busy_s", p.get("device_busy_s_lower_bound"))
+            for p in (full, pre)]
+    rec = {"model": eng.cfg.name, "B": B, "prompt": S, "gen": gen,
+           "launches_per_call": full["launches"],
+           "launches_prefill": pre["launches"],
+           "launches_per_decode_step": step,
+           "prefill_wall_s": pre["wall_s"],
+           "decode_wall_s_per_step": (full["wall_s"] - pre["wall_s"]) / gen,
+           "decode_busy_s_per_step": (busy[0] - busy[1]) / gen,
+           "traces_complete": full["trace_complete"]
+           and pre["trace_complete"]}
+    emit("decode_launches", **rec)
+    return {**dev_ms, "steps": rec}
+
+
+def phase_family(dev, phase: str, cfg, tun: Tunables, per_call: dict,
+                 batches=(2, 8), prompt: int = 48, gen: int = 8,
+                 profiled: dict | None = None):
+    """``cfg`` at full width behind ServeEngine (bf16, random weights from
+    seed 0): a serve call at each of ``batches``, every kernel launch of
+    each prefill counted (``per_call``: launches of each kernel per serve
+    call; any other kernel must not launch) and each recorded input held
+    against the plain versions; then, with ``profiled`` (result key ->
+    substring of a kernel's name), one call under the profiler.  Returns
+    the engine and the phase's record."""
+    eng, init = new_engine(cfg, tun, dev)
     first = {k: {} for k in per_call}
     last = {k: collections.deque(maxlen=n) for k, n in per_call.items()}
     with contextlib.ExitStack() as stack:
@@ -1624,26 +1723,139 @@ def phase_hybrid(dev, batches=(2, 8), prompt: int = 48, gen: int = 8):
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches = counters()
-    for name, n in per_call.items():
-        assert launches[name] == n * len(reports), (name, launches)
+    for name in ("flash_attention", "ssd_scan", "nbr_adjacency", "pairdist"):
+        assert launches[name] == per_call.get(name, 0) * len(reports), (
+            name, launches)
     assert_tensor_core_route(launches)
     parity = {}
     t0 = time.perf_counter()
     for name, n in per_call.items():
         recorded = [r for recs in first[name].values() for r in recs]
         assert len(recorded) == n * len(reports), (name, len(recorded))
-        parity[name] = check_recorded("hybrid", name, recorded)
-    emit("hybrid", model=cfg.name, params_init_s=init_s, serve_s=serve_s,
+        parity[name] = check_recorded(phase, name, recorded)
+    calls = [{"batch": r.batch, "prompt": r.prompt_len, "gen": r.steps,
+              "capacity": r.capacity, "prefill_s": r.prefill_s,
+              "decode_s_per_step": r.decode_s / max(r.steps, 1),
+              "tokens_shape": list(r.generated.shape),
+              "finite": bool(np.isfinite(r.generated).all()
+                             and (r.generated >= 0).all()
+                             and (r.generated < cfg.vocab).all())}
+             for r in reports]
+    emit(phase, model=cfg.name, **init, serve_s=serve_s,
          parity_s=time.perf_counter() - t0,
-         kernel_launches=launches, per_prefill=per_call,
-         calls=[{"batch": r.batch, "prompt": r.prompt_len, "gen": r.steps,
-                 "prefill_s": r.prefill_s,
-                 "decode_s_per_step": r.decode_s / max(r.steps, 1),
-                 "finite": bool(np.isfinite(r.generated).all())}
-                for r in reports])
-    dev_ms = profile_serve(eng, HYBRID_TUN, {"flash": "flash_fwd_wgmma",
-                                             "ssd": "ssd_fwd_mma"})
-    return {"launches": launches, "parity": parity, "device_ms": dev_ms}
+         kernel_launches=launches, per_prefill=per_call, calls=calls)
+    assert all(c["finite"] and c["tokens_shape"] == [c["batch"], gen + 1]
+               for c in calls), calls
+    dev_ms = (profile_serve(eng, tun, profiled, (batches[-1], prompt))
+              if profiled else None)
+    return eng, {"launches": launches, "parity": parity, "device_ms": dev_ms}
+
+
+def phase_hybrid(dev):
+    """zamba2-7b at full width on the pallas route: every SSD layer (81)
+    and every shared-block hit (13) of each prefill through the kernels;
+    one call profiled."""
+    cfg = get_config("zamba2-7b")
+    eng, rec = phase_family(
+        dev, "hybrid", cfg, HYBRID_TUN,
+        {"flash_attention": cfg.n_layers // cfg.hybrid_period,
+         "ssd_scan": cfg.n_layers},
+        profiled={"flash": "flash_fwd_wgmma", "ssd": "ssd_fwd_mma"})
+    return rec
+
+
+def phase_vlm(dev):
+    """paligemma-3b at full width on the pallas route: prompts of 256
+    patches and 48 text tokens; the flash kernel once per layer (18) of
+    each prefill, at head_dim 256 with 8 query heads on one KV head (the
+    prefix dropped, as the reference's pallas route drops it); one call
+    profiled."""
+    cfg = get_config("paligemma-3b")
+    return phase_family(dev, "vlm", cfg, VLM_TUN,
+                        {"flash_attention": cfg.n_layers},
+                        prompt=cfg.num_patches + 48,
+                        profiled={"flash": "flash_fwd_wgmma"})
+
+
+def phase_encdec(dev):
+    """seamless-m4t-large-v2 at full width: the reference's encdec path
+    never passes ``impl``, so its attention is ``attention_xla`` whatever
+    ``attn_impl`` says, and no kernel of the repo launches."""
+    cfg = get_config("seamless-m4t-large-v2")
+    return phase_family(dev, "encdec", cfg, ENCDEC_TUN, {})
+
+
+# decode against forward at full width in bf16, relative to the logits'
+# abs-max: a fault in the cache (a wrong slot, position or length) moves
+# the logits by their own size, bf16 rounding through the layers by a few
+# percent, and through deepseek's top-6 router, whose picks flip at
+# near-ties, by up to a fifth (on one H100, its prefill logits on the two
+# attention routes differ by 0.18 of their abs-max, and its decode by
+# 0.10 from the forward with every argmax equal).  Each model's noise
+# floor (two forwards of different lengths) and an off-by-one position
+# (decode against the forward one token short) are printed beside it.
+DECODE_REL_BOUND = 0.25
+
+
+def decode_consistency(dev, eng, P: int = 32, G: int = 4) -> dict:
+    """tests/test_decode_consistency.py at full width in bf16 on ``eng``'s
+    weights: prefill P tokens, then G decode steps, each against the
+    forward over P + i + 1 tokens, on the xla route (isolating the cache,
+    as the reference test does); MoE with capacity factor 64 (drops
+    depend on the batch), vlm after its patches, encdec through its own
+    cache.  Max |Δlogit| against the logits' abs-max, asserted under
+    ``DECODE_REL_BOUND``; argmax agreement printed (greedy near-ties under
+    random weights)."""
+    cfg = eng.cfg
+    tun = Tunables(capacity_factor=64.0) if cfg.moe else Tunables()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    offset = cfg.num_patches if cfg.family == "vlm" else 0
+    seq = 2 * (P + G) if cfg.family == "encdec" else P + G + offset
+    full = M.make_batch(gen, cfg, ShapeSpec("f", seq, 2, "prefill"))
+    tokens = full.pop("tokens")
+
+    def fwd(upto):
+        return M.forward(eng.params, cfg, {**full, "tokens": tokens[:, :upto]},
+                         tun)[0][:, -1].float()
+    with torch.no_grad():
+        cache = (M.init_cache(cfg, 2, seq, self_len=P + G, device=dev)
+                 if cfg.family == "encdec" else
+                 M.init_cache(cfg, 2, seq, device=dev))
+        logits, cache = M.prefill(eng.params, cfg,
+                                  {**full, "tokens": tokens[:, :P]}, tun,
+                                  cache=cache)
+        rows = [(logits[:, 0].float(), fwd(P))]
+        for i in range(G):
+            logits, cache = M.decode(eng.params, cfg,
+                                     {"tokens": tokens[:, P + i:P + i + 1],
+                                      "pos": P + i + offset}, cache, tun)
+            rows.append((logits[:, 0].float(), fwd(P + i + 1)))
+        # the forward over all P + G tokens, read at each row's position
+        whole = M.forward(eng.params, cfg, {**full, "tokens": tokens}, tun)[0]
+        floor = [(whole[:, i - G - 1].float(), b)
+                 for i, (_, b) in enumerate(rows)]
+        del whole
+    absmax = max(float(b.abs().max()) for _, b in rows)
+
+    def rel(pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs) / absmax
+    diff = max(float((a - b).abs().max()) for a, b in rows)
+    rec = {"model": cfg.name, "P": P, "G": G, "max_abs_logit_diff": diff,
+           "logit_absmax": absmax, "relative": diff / absmax,
+           "bound": DECODE_REL_BOUND,
+           "forward_noise_floor": rel(floor),
+           "off_by_one_relative": rel([(a, rows[i][1]) for i, (a, _)
+                                       in enumerate(rows[1:])]),
+           "argmax_agree": float(np.mean([float((a.argmax(-1) == b.argmax(-1))
+                                                .float().mean())
+                                          for a, b in rows])),
+           "finite": all(bool(torch.isfinite(a).all()) for a, _ in rows)}
+    emit("decode_consistency", **rec)
+    # within the bound, and at least twice as close to the forward at its
+    # own position as to the forward one position short
+    assert rec["finite"] and rec["relative"] <= DECODE_REL_BOUND, rec
+    assert rec["relative"] < rec["off_by_one_relative"] / 2, rec
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2731,6 +2943,33 @@ def main() -> int:
     emit("phase_seconds", of="hybrid", seconds=time.perf_counter() - t0)
     release_memory()
 
+    deepseek = get_config("deepseek-moe-16b")
+    t0 = time.perf_counter()
+    eng, served_moe = phase_serving(dev, "serving_moe", deepseek,
+                                    MOE_INITIAL, SERVE_SPACE,
+                                    {"flash_attention": deepseek.n_layers})
+    emit("phase_seconds", of="serving_moe", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_serving_parity(dev, eng, "serving_moe_parity", MOE_INITIAL)
+    moe_dev = launches_per_decode_step(eng, MOE_INITIAL,
+                                       {"flash": "flash_fwd_wgmma"})
+    emit("phase_seconds", of="serving_moe_parity+profile",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    decode_consistency(dev, eng)
+    del eng
+    eng, vlm = phase_vlm(dev)
+    decode_consistency(dev, eng)
+    del eng
+    emit("phase_seconds", of="vlm", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eng, _ = phase_encdec(dev)
+    decode_consistency(dev, eng)
+    del eng
+    release_memory()
+    emit("phase_seconds", of="encdec+decode_consistency",
+         seconds=time.perf_counter() - t0)
+
     t0 = time.perf_counter()
     trained = phase_training(dev)
     emit("phase_seconds", of="training", seconds=time.perf_counter() - t0)
@@ -2775,8 +3014,8 @@ def main() -> int:
     emit("phase_seconds", of="clustering", seconds=time.perf_counter() - t0)
 
     main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"] \
-        + trained["nbr_parity"] + scen["parity"] + durable["parity"] \
-        + fleet["parity"] + clustering["parity"]
+        + served_moe["nbr_parity"] + trained["nbr_parity"] + scen["parity"] \
+        + durable["parity"] + fleet["parity"] + clustering["parity"]
     B, S = MAIN_SHAPE
     fl = timed[MAIN_SHAPE]
     sd = timed_ssd[("mamba2-1.3b", B, S)]
@@ -2784,6 +3023,7 @@ def main() -> int:
                     "full_history": full_launches,
                     "serving": served["launches"]["nbr_adjacency"],
                     "serving_ssm": served_ssm["launches"]["nbr_adjacency"],
+                    "serving_moe": served_moe["launches"]["nbr_adjacency"],
                     "training": trained["launches"]["nbr_adjacency"],
                     "scenarios": scen["launches"],
                     "durable_history": durable["launches"],
@@ -2791,9 +3031,13 @@ def main() -> int:
                     "clustering": clustering["launches"]}
     flash_by_phase = {"serving": served["launches"]["flash_attention"],
                       "hybrid": hybrid["launches"]["flash_attention"],
+                      "serving_moe": served_moe["launches"]["flash_attention"],
+                      "vlm": vlm["launches"]["flash_attention"],
                       "training": trained["launches"]["flash_attention"]}
     flash_parity = served["parity"]["flash_attention"] + \
-        hybrid["parity"]["flash_attention"] + trained["parity"]
+        hybrid["parity"]["flash_attention"] + \
+        served_moe["parity"]["flash_attention"] + \
+        vlm["parity"]["flash_attention"] + trained["parity"]
     ssd_by_phase = {"serving_ssm": served_ssm["launches"]["ssd_scan"],
                     "hybrid": hybrid["launches"]["ssd_scan"],
                     "training_ssm": trained_ssm["launches"]["ssd_scan"]}
@@ -2833,16 +3077,19 @@ def main() -> int:
         "shape": {"B": B, "S": S, **QWEN2, "dtype": "bf16"},
         "device_ms": flash_dev[0],
         "device_ms_zamba2": hybrid["device_ms"]["flash"][0],
+        "device_ms_deepseek": moe_dev["flash"][0],
+        "device_ms_paligemma": vlm["device_ms"]["flash"][0],
         "design": FA.DESIGN,
         "backward": "recompute through models/layers.attention_xla, "
         "differentiated by autograd (FlashAttention, a torch.autograd."
         "Function), as the reference's custom_vjp "
         "(src/repro/kernels/flash_attention.py:143-160)",
         "launches_by_dtype": by_dtype(served["launches"], hybrid["launches"],
-                                      trained["launches"],
+                                      served_moe["launches"],
+                                      vlm["launches"], trained["launches"],
                                       name="flash_attention"),
-        "timed": {("zamba2_B8xS48" if key == "zamba2" else
-                   f"B{key[0]}xS{key[1]}"): summary(rec)
+        "timed": {(f"{key}_B{rec['B']}xS{rec['S']}" if isinstance(key, str)
+                   else f"B{key[0]}xS{key[1]}"): summary(rec)
                   for key, rec in timed.items()},
         "parity": {"main_path_inputs": len(flash_parity)},
         "tolerance": "|kernel - plain| <= 1e-3 + 2^-7·|plain| in bf16 (one "

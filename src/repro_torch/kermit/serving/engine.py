@@ -19,7 +19,14 @@ once and caches its steps per configuration:
 
 ``serve`` allocates the KV cache once, at ``capacity_for(...)`` positions
 in ``cache_dtype``; prefill writes its keys and values into it and decode
-updates it in place, so there is no pad-and-cast copy between them.
+updates it in place, so there is no pad-and-cast copy between them.  The
+cache has the shapes the reference's padded prefill cache has
+(``_serve_cache``): for the vlm family the prompt counts the patches;
+for encdec the decoder holds ``prompt_len // 2`` tokens, so its
+self-attention keys and values get ``prompt_len // 2 + capacity -
+prompt_len`` positions, the cross-attention ones exactly the encoder
+memory's, and decode writes past the last position land on it, as the
+reference's clamped ``dynamic_update_slice`` writes them (ROADMAP C20).
 
 Serving-specific knobs (``configs/base.Tunables``):
 
@@ -155,6 +162,10 @@ class ServeEngine:
         return fn
 
     def _token_batch(self, prompt_len: int, batch: int):
+        npt = self.cfg.num_patches if self.cfg.family == "vlm" else 0
+        if prompt_len <= npt:
+            raise ValueError(f"{self.cfg.name}'s prompt of {prompt_len} "
+                             f"positions must exceed its {npt} patches")
         key = (prompt_len, batch)
         b = self._batches.get(key)
         if b is None:
@@ -162,6 +173,19 @@ class ServeEngine:
                              ShapeSpec("pf", prompt_len, batch, "prefill"))
             self._batches[key] = b
         return b
+
+    def _serve_cache(self, batch: int, prompt_len: int, capacity: int,
+                     dtype):
+        """The zeroed cache of one serve call, shaped as the reference's
+        prefill cache once padded by ``capacity - prompt_len`` (names k,
+        v, k0, v0; only they take ``cache_dtype``)."""
+        if self.cfg.family == "encdec":
+            return M.init_cache(self.cfg, batch, prompt_len, dtype=dtype,
+                                device=self.device,
+                                self_len=prompt_len // 2 + capacity
+                                - prompt_len)
+        return M.init_cache(self.cfg, batch, capacity, dtype=dtype,
+                            device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -199,8 +223,7 @@ class ServeEngine:
             else getattr(torch, tun.cache_dtype)
 
         t0 = time.perf_counter()
-        cache = M.init_cache(self.cfg, batch, capacity, dtype=cache_dt,
-                             device=self.device)
+        cache = self._serve_cache(batch, prompt_len, capacity, cache_dt)
         logits, cache = prefill(self.params, b, cache)
         self._sync()
         prefill_s = time.perf_counter() - t0

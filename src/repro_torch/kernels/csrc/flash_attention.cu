@@ -58,7 +58,8 @@
 //   * Tiles above the causal diagonal or before the window are skipped.
 //   * Shared memory: Q (2 x d/64 chunks of 8 KB) and two stages of K and
 //     V: 96 KB at d = 128 (two blocks, four warpgroups per SM), 192 KB at
-//     d = 224.
+//     d = 224 and 256 (both four chunks; 256 takes 16 k steps of Q . K^T,
+//     224 takes 14 and reads zeros past d).
 //   * Not yet here: warp specialisation (a producer warp, consumers in
 //     ping-pong) and the next tile's Q . K^T issued before this tile's
 //     softmax, so a warpgroup's softmax does not overlap its own products;
@@ -68,8 +69,10 @@
 //   64-row query tile) and walks 32-row KV tiles staged in shared memory as
 //   fp32; four threads share a query row, each holding a quarter of q and
 //   acc as float4s; the partial dot products meet by two shuffles.
-//   Shared memory 2 * 32 * d * 4 bytes.
-// Head widths 32, 64, 112 (zamba2-7b), 128 and 224 (gemma2).
+//   Shared memory 2 * 32 * d * 4 bytes (64 KB at d = 256, above the 48 KB
+//   default, so the launch raises the limit first).
+// Head widths 32, 64, 112 (zamba2-7b), 128, 224 (gemma2) and 256
+// (paligemma-3b).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -630,6 +633,7 @@ cudaError_t dispatch_wgmma(int d, const TmaParams& p, int B, int H,
     case 112: return launch_wgmma<112>(p, B, H, s);
     case 128: return launch_wgmma<128>(p, B, H, s);
     case 224: return launch_wgmma<224>(p, B, H, s);
+    case 256: return launch_wgmma<256>(p, B, H, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -701,6 +705,7 @@ cudaError_t dispatch_fp32(int d, const Params& p, int B, int H,
     case 112: return launch<112>(p, B, H, s);
     case 128: return launch<128>(p, B, H, s);
     case 224: return launch<224>(p, B, H, s);
+    case 256: return launch<256>(p, B, H, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -44,7 +44,7 @@ LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"bfloat16": 0, "float32": 0}
 DESIGN = {"bfloat16": "wgmma", "float32": "cuda_cores"}
 
-HEAD_DIMS = (32, 64, 112, 128, 224)   # head widths the kernel takes
+HEAD_DIMS = (32, 64, 112, 128, 224, 256)   # head widths the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # flash_attention_fwd(q, k, v, out, dtype, d, B, Sq, Skv, H, K, kv_len,
 # kv_pad, 12 strides, causal, window, softcap, scale, stream)

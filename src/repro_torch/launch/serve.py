@@ -3,7 +3,12 @@
 Port of ``repro/launch/serve.py``; runs on the card:
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b --full
-  python -m repro_torch.launch.serve --arch qwen2-1.5b --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b --full
+  python -m repro_torch.launch.serve --arch paligemma-3b --device cpu
+
+Every family serves: dense, moe, vlm (the prompt counts the image's
+patches, so its default is 64 text tokens after them), ssm, hybrid and
+encdec (half the prompt is frames, half tokens).
 """
 from __future__ import annotations
 
@@ -31,7 +36,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="qwen2-1.5b")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="prompt positions (default: 64, after the "
+                         "patches for vlm)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default=None,
@@ -40,7 +47,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if not args.full:
         cfg = reduced(cfg)
-    res = serve_batch(cfg, args.batch, args.prompt_len, args.gen,
+    prompt = args.prompt_len or 64 + (cfg.num_patches if cfg.family == "vlm"
+                                      else 0)
+    res = serve_batch(cfg, args.batch, prompt, args.gen,
                       DEFAULT_TUNABLES, device=args.device)
     res["generated"] = f"{len(res['generated'])} sequences"
     print(json.dumps(res, indent=1))

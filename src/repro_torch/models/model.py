@@ -1,10 +1,9 @@
 """Unified model interface dispatched on ``cfg.family``.
 
-Port of ``repro/models/model.py``, for the families the port runs so far:
-``dense`` (``models/transformer.py``), ``ssm`` (Mamba2) and ``hybrid``
-(Zamba2) (``models/ssm_lm.py``).  ``moe`` and ``vlm`` go to the
-transformer, which raises for their MoE layers and patch prefix;
-``encdec`` raises here.
+Port of ``repro/models/model.py``, for every family of the reference:
+``dense``, ``moe`` and ``vlm`` (``models/transformer.py``), ``ssm``
+(Mamba2) and ``hybrid`` (Zamba2) (``models/ssm_lm.py``) and ``encdec``
+(``models/encdec.py``).
 
 Functions:
   init(gen, cfg)                         -> params (drawn from ``gen``)
@@ -24,30 +23,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models import encdec as ED
 from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 
-_LATER = {
-    "encdec": "the encdec family is not ported yet (ROADMAP queue A, item "
-              "14b: models/encdec.py)",
-}
-
-
-def _check(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(_LATER[cfg.family])
-
 
 def init(gen: torch.Generator, cfg: ModelConfig):
-    _check(cfg)
-    fn = {"ssm": S.init_mamba, "hybrid": S.init_zamba}.get(cfg.family, T.init)
+    fn = {"encdec": ED.init, "ssm": S.init_mamba,
+          "hybrid": S.init_zamba}.get(cfg.family, T.init)
     return fn(gen, cfg)
 
 
 def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
-    _check(cfg)
-    fn = {"ssm": S.forward_mamba, "hybrid": S.forward_zamba}.get(
-        cfg.family, T.forward)
+    fn = {"encdec": ED.forward, "ssm": S.forward_mamba,
+          "hybrid": S.forward_zamba}.get(cfg.family, T.forward)
     return fn(params, cfg, batch, tun, return_cache=return_cache,
               cache=cache)
 
@@ -82,33 +71,49 @@ def prefill(params, cfg, batch, tun, cache=None):
 
 
 def decode(params, cfg, batch, cache, tun):
-    _check(cfg)
-    fn = {"ssm": S.decode_mamba, "hybrid": S.decode_zamba}.get(
-        cfg.family, T.decode_step)
+    fn = {"encdec": ED.decode_step, "ssm": S.decode_mamba,
+          "hybrid": S.decode_zamba}.get(cfg.family, T.decode_step)
     return fn(params, cfg, batch, cache, tun)
 
 
-def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
+def init_cache(cfg, batch: int, seq: int, dtype=None, device=None,
+               self_len: int | None = None):
     """Zeroed cache for ``batch`` sequences of capacity ``seq``.
-    ``dtype`` (None: the model dtype) applies to the attention keys and
-    values only; SSM states stay fp32 and conv rows in the model dtype."""
-    _check(cfg)
+    ``dtype`` (None: the model dtype) applies to the self-attention keys
+    and values only; SSM states stay fp32, conv rows and the encdec
+    family's cross-attention keys and values in the model dtype.  For
+    encdec, ``seq`` counts frames and tokens, half each (the reference's
+    layout), and ``self_len`` sets the self-attention positions (default
+    seq // 2); the other families take no ``self_len``."""
+    if cfg.family == "encdec":
+        return ED.init_cache(cfg, batch, seq, dtype=dtype, device=device,
+                             self_len=self_len)
+    if self_len is not None:
+        raise ValueError(f"self_len is for the encdec family, not "
+                         f"{cfg.family}")
     fn = {"ssm": S.cache_mamba, "hybrid": S.cache_zamba}.get(
         cfg.family, T.init_cache)
     return fn(cfg, batch, seq, dtype=dtype, device=device)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
-    """Batch (shape, dtype) pairs for (cfg, shape) of the ported families:
-    a train batch adds ``targets`` (int32) and ``mask`` (fp32) to the
-    tokens."""
-    _check(cfg)
+    """Batch (shape, dtype) pairs for (cfg, shape): tokens, and the vlm
+    family's patch embeddings (the text is ``seq_len - num_patches``
+    long) or the encdec family's frame embeddings (half of ``seq_len``
+    each); a train batch adds ``targets`` (int32) and ``mask`` (fp32)."""
     B, Sq = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, getattr(torch, cfg.dtype)
     if shape.kind == "decode":
-        return {"tokens": ((B, 1), torch.int32), "pos": ((), torch.int32)}
+        return {"tokens": ((B, 1), i32), "pos": ((), i32)}
     if cfg.family == "vlm":
-        raise NotImplementedError(T._VLM)
-    d = {"tokens": ((B, Sq), torch.int32)}
+        npt = cfg.num_patches
+        d = {"tokens": ((B, Sq - npt), i32),
+             "patches": ((B, npt, cfg.d_model), dt)}
+    elif cfg.family == "encdec":
+        Sq = Sq // 2
+        d = {"frames": ((B, Sq, cfg.d_model), dt), "tokens": ((B, Sq), i32)}
+    else:
+        d = {"tokens": ((B, Sq), i32)}
     if shape.kind == "train":
         d["targets"] = ((B, Sq), torch.int32)
         d["mask"] = ((B, Sq), torch.float32)
@@ -132,13 +137,17 @@ def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 def make_batch(gen: torch.Generator, cfg: ModelConfig,
                shape: ShapeSpec) -> dict:
     """Random batch matching ``input_specs``: tokens and targets in
-    [0, vocab) drawn from ``gen``, a mask of ones, on ``gen``'s device."""
+    [0, vocab) and standard-normal patches or frames (cast to the model
+    dtype) drawn from ``gen``, a mask of ones, on ``gen``'s device."""
     out = {}
     for k, (shp, dtype) in input_specs(cfg, shape).items():
         if k == "pos":
             out[k] = shape.seq_len - 1
         elif k == "mask":
             out[k] = torch.ones(shp, dtype=dtype, device=gen.device)
+        elif dtype.is_floating_point:
+            out[k] = torch.randn(shp, generator=gen,
+                                 device=gen.device).to(dtype)
         else:
             out[k] = torch.randint(0, cfg.vocab, shp, generator=gen,
                                    device=gen.device, dtype=dtype)

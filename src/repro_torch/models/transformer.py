@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM — the ``dense`` family.
+"""Decoder-only transformer LM covering the dense / moe / vlm families.
 
 Port of ``repro/models/transformer.py``.  Layers keep the reference's
 stacked layout (leading L axis); the reference's ``lax.scan`` over them is
@@ -8,8 +8,13 @@ runs under the ``remat`` tunable's policy (``REMAT_POLICY``) while grad is
 enabled and something in it needs grad — training; the serving path runs
 the body as it is.
 
-MoE layers (``cfg.moe``) and the vlm patch prefix are not ported yet and
-raise ``NotImplementedError`` (ROADMAP queue A, item 14).
+MoE layers (``models/moe.py``) replace the MLP of every layer, but for
+deepseek's dense layer 0 (``params["layer0"]``, unstacked, its cache in
+``k0``/``v0``); their auxiliary losses are summed over the layers.  The
+vlm family prepends ``num_patches`` projected patch embeddings to the
+text, attending to each other bidirectionally (``prefix_len``) on the
+xla route; the pallas route drops the prefix, as the reference's does
+(ROADMAP C10).
 """
 from __future__ import annotations
 
@@ -21,11 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
-
-_MOE = ("MoE layers (cfg.moe) are not ported yet (ROADMAP queue A, item "
-        "14: models/moe.py)")
-_VLM = ("the vlm patch prefix is not ported yet (ROADMAP queue A, item 14: "
-        "the vlm family)")
+from repro_torch.models import moe as MOE
 
 
 # 2-D matrix products: the counterpart of ``dots_with_no_batch_dims_saveable``
@@ -68,36 +69,63 @@ def remat(fn, tun, *inputs):
     return fn
 
 
-def _check_family(cfg) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(_MOE)
-    if cfg.family == "vlm":
-        raise NotImplementedError(_VLM)
+def _is_moe_layer(cfg, idx: int) -> bool:
+    if cfg.moe is None:
+        return False
+    if cfg.moe.first_layer_dense and idx == 0:
+        return False
+    return True
+
+
+def _dense_ff0(cfg) -> int:
+    """FLOP-matched dense FFN width for deepseek's dense first layer."""
+    m = cfg.moe
+    return (m.top_k + m.num_shared) * m.d_expert
 
 
 def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def layer_init(gen, cfg, dtype, n: int):
-    """``n`` stacked layers (leading axis n)."""
-    lead = (n,)
-    return {
-        "ln1": torch.zeros((n, cfg.d_model), dtype=dtype, device=gen.device),
+def layer_init(gen, cfg, dtype, lead, moe_layer: bool,
+               d_ff: int | None = None):
+    """Layers stacked along ``lead`` (``()``: one unstacked layer)."""
+    p = {
+        "ln1": torch.zeros((*lead, cfg.d_model), dtype=dtype,
+                           device=gen.device),
         "attn": L.attn_init(gen, cfg, dtype, lead=lead),
-        "ln2": torch.zeros((n, cfg.d_model), dtype=dtype, device=gen.device),
-        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
+        "ln2": torch.zeros((*lead, cfg.d_model), dtype=dtype,
+                           device=gen.device),
     }
+    if moe_layer:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, lead=lead)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, d_ff or cfg.d_ff, dtype,
+                              lead=lead)
+    return p
+
+
+def _n_scan(cfg) -> int:
+    """Layers in the stack: all but deepseek's dense layer 0."""
+    dense0 = cfg.moe is not None and not _is_moe_layer(cfg, 0)
+    return cfg.n_layers - dense0
 
 
 def init(gen: torch.Generator, cfg):
     """Parameters drawn from ``gen`` on ``gen.device``."""
-    _check_family(cfg)
     dtype = _dtype(cfg)
     params = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
               "ln_f": torch.zeros((cfg.d_model,), dtype=dtype,
                                   device=gen.device)}
-    params["layers"] = layer_init(gen, cfg, dtype, cfg.n_layers)
+    n_scan = _n_scan(cfg)
+    if n_scan < cfg.n_layers:
+        params["layer0"] = layer_init(gen, cfg, dtype, (), False,
+                                      _dense_ff0(cfg))
+    params["layers"] = layer_init(gen, cfg, dtype, (n_scan,),
+                                  cfg.moe is not None)
+    if cfg.family == "vlm":
+        params["patch_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model,
+                                            dtype)
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
                                       dtype)
@@ -125,10 +153,8 @@ def block_apply(p, x, cfg, tun, *, positions, window, prefix_len=0,
                 kv=None, kv_pos=None, kv_len=None, write_pos=None):
     """One transformer block.  With ``kv``/``write_pos``: decode against
     the cache (ck, cv), whose slot ``write_pos`` is written IN PLACE with
-    this token's key and value.  Returns (x, (k, v)); dense layers have
-    no auxiliary loss (the reference's is 0 for them)."""
-    if "moe" in p:
-        raise NotImplementedError(_MOE)
+    this token's key and value.  Returns (x, (k, v), aux): aux is the MoE
+    layer's load-balancing loss, a 0-dim fp32 zero for a dense layer."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if write_pos is not None:
         q, k1, v1 = L.attn_qkv(p["attn"], h, cfg, positions)
@@ -151,19 +177,34 @@ def block_apply(p, x, cfg, tun, *, positions, window, prefix_len=0,
                                  q_chunk=tun.attn_q_chunk, impl=impl)
     x = x + h
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_apply(p["mlp"], h)
-    return x, new_kv
+    if "moe" in p:
+        h, aux = MOE.moe_apply(p["moe"], h, cfg,
+                               capacity_factor=tun.capacity_factor)
+    else:
+        h = L.mlp_apply(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, new_kv, aux
+
+
+def _embed_tokens(params, cfg, tokens):
+    tok = params["embed"][tokens]
+    if cfg.scale_embed:
+        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
+    return tok
 
 
 def embed_input(params, cfg, batch):
-    """tokens -> (x, positions, prefix_len)."""
+    """tokens (+ the vlm family's patch embeddings) -> (x, positions,
+    prefix_len)."""
+    tok = _embed_tokens(params, cfg, batch["tokens"])
+    prefix_len = 0
+    x = tok
     if cfg.family == "vlm":
-        raise NotImplementedError(_VLM)
-    tok = params["embed"][batch["tokens"]]
-    if cfg.scale_embed:
-        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
-    positions = torch.arange(tok.shape[1], device=tok.device)
-    return tok, positions, 0
+        patches = batch["patches"].to(tok.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, tok], dim=1)
+        prefix_len = cfg.num_patches
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions, prefix_len
 
 
 def _head(params, cfg, x):
@@ -177,62 +218,80 @@ def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
     """Train / prefill forward.  Returns (logits, aux_loss, cache|None).
 
     With ``return_cache`` the layers' keys and values go into ``cache``
-    ({"k", "v"}: (L, B, capacity, K, hd), capacity >= S), written in place
-    into positions [0, S) and cast to its dtype; without one, a cache of
-    exactly S positions in the model dtype is allocated."""
-    _check_family(cfg)
+    ({"k", "v"}: (L, B, capacity, K, hd), capacity >= S, and deepseek's
+    {"k0", "v0"}: (B, capacity, K, hd)), written in place into positions
+    [0, S) and cast to its dtype; without one, a cache of exactly S
+    positions in the model dtype is allocated."""
     x, positions, prefix_len = embed_input(params, cfg, batch)
     S = x.shape[1]
     if return_cache and cache is None:
         cache = init_cache(cfg, x.shape[0], S, device=x.device)
-    wins = layer_windows(cfg, cfg.n_layers, device=x.device).unbind(0)
-    layers = _unstack(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # layer 0's window: the reference's int32(0), full attention; None
+    # masks the same and copies no scalar to the card
+    if "layer0" in params:
+        x, (k, v), a = block_apply(params["layer0"], x, cfg, tun,
+                                   positions=positions, window=None,
+                                   prefix_len=prefix_len)
+        aux = aux + a
+        if return_cache:
+            cache["k0"][:, :S] = k
+            cache["v0"][:, :S] = v
+    n_scan = _n_scan(cfg)
+    wins = layer_windows(cfg, n_scan, device=x.device).unbind(0)
+    layers = _unstack(params["layers"], n_scan)
 
     def body(p_l, x, win):
         return block_apply(p_l, x, cfg, tun, positions=positions,
                            window=win, prefix_len=prefix_len)
     body = remat(body, tun, x, params["layers"])
-    for i in range(cfg.n_layers):
-        x, (k, v) = body(layers[i], x, wins[i])
+    for i in range(n_scan):
+        x, (k, v), a = body(layers[i], x, wins[i])
+        aux = aux + a
         if return_cache:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
     logits = _head(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, (cache if return_cache else None)
 
 
 def decode_step(params, cfg, batch, cache, tun):
     """One-token decode. batch: {"tokens": (B,1), "pos": int}.
-    cache: {"k": (L,B,S,K,hd), "v": ...}, updated IN PLACE at ``pos`` and
-    returned.  Returns (logits, cache)."""
-    _check_family(cfg)
+    cache: {"k": (L,B,S,K,hd), "v": ...} (+ "k0"/"v0"), updated IN PLACE
+    at ``pos`` and returned.  Returns (logits, cache)."""
     pos = int(batch["pos"])
-    tok = params["embed"][batch["tokens"]]
-    if cfg.scale_embed:
-        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
-    x = tok
+    x = _embed_tokens(params, cfg, batch["tokens"])
     dev = x.device
     positions = torch.full((1,), pos, device=dev)
     S = cache["k"].shape[2]
     kv_pos = torch.arange(S, device=dev)
     kv_len = pos + 1
-    wins = layer_windows(cfg, cfg.n_layers, device=dev).unbind(0)
-    layers = _unstack(params["layers"], cfg.n_layers)
-    for i in range(cfg.n_layers):
-        x, _ = block_apply(layers[i], x, cfg, tun,
-                              positions=positions, window=wins[i],
-                              kv=(cache["k"][i], cache["v"][i]),
-                              kv_pos=kv_pos, kv_len=kv_len, write_pos=pos)
+    step = dict(positions=positions, kv_pos=kv_pos, kv_len=kv_len,
+                write_pos=pos)
+    if "layer0" in params:
+        x, _, _ = block_apply(params["layer0"], x, cfg, tun, window=None,
+                              kv=(cache["k0"], cache["v0"]), **step)
+    n_scan = _n_scan(cfg)
+    wins = layer_windows(cfg, n_scan, device=dev).unbind(0)
+    layers = _unstack(params["layers"], n_scan)
+    for i in range(n_scan):
+        x, _, _ = block_apply(layers[i], x, cfg, tun, window=wins[i],
+                              kv=(cache["k"][i], cache["v"][i]), **step)
     return _head(params, cfg, x), cache
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
     """Zeroed KV cache {"k", "v"}: (L, batch, seq, K, hd) in ``dtype``
-    (default: the model dtype) on ``device`` (None: CUDA)."""
-    _check_family(cfg)
+    (default: the model dtype) on ``device`` (None: CUDA), and deepseek's
+    {"k0", "v0"}: (batch, seq, K, hd) for its dense layer 0."""
     dtype = dtype or _dtype(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    n_scan = _n_scan(cfg)
+    shape = (batch, seq, cfg.n_kv_heads, cfg.hd)
+    cache = {}
+    if n_scan < cfg.n_layers:
+        cache["k0"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v0"] = torch.zeros(shape, dtype=dtype, device=dev)
+    cache["k"] = torch.zeros((n_scan, *shape), dtype=dtype, device=dev)
+    cache["v"] = torch.zeros((n_scan, *shape), dtype=dtype, device=dev)
+    return cache

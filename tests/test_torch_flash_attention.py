@@ -29,6 +29,8 @@ CASES = [
     (1, 160, 160, 12, 2, 128, True, 0, 0.0, "bfloat16"),
     # non-causal, Sq != Skv, KV padded
     (2, 40, 100, 4, 2, 32, False, 0, 0.0, "float32"),
+    # paligemma-3b's heads: 8 query heads on one KV head of 256
+    (1, 80, 80, 8, 1, 256, True, 0, 0.0, "float32"),
 ]
 
 
@@ -177,6 +179,7 @@ def _emulate_wgmma(q, k, v, *, causal=True, window=0, softcap=0.0):
     (2, 48, 48, 12, 2, 128, True, 0, 0.0),
     (2, 48, 48, 8, 8, 112, True, 0, 0.0),
     (1, 160, 160, 4, 2, 224, True, 64, 50.0),
+    (2, 80, 80, 8, 1, 256, True, 0, 0.0),
 ])
 def test_wgmma_rounding_fits_the_bf16_tolerance(case):
     """The tensor-core kernel's rounding (P as bf16 hi + lo) stays inside
@@ -200,4 +203,22 @@ def test_cuda_route_refuses_cpu_tensors_and_unsupported_shapes():
     q = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         FA._flash_fwd_cuda(q, q, q)
-    assert FA.HEAD_DIMS == (32, 64, 112, 128, 224)
+    assert FA.HEAD_DIMS == (32, 64, 112, 128, 224, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_matches_reference_attention_xla(dtype):
+    """paligemma-3b's prefill attention (d = 256, G = 8 query heads on one
+    KV head, causal; the prefix is dropped on this route) through the
+    plain version, against the reference's ``attention_xla``."""
+    from repro.models.layers import attention_xla as j_attention_xla
+    case = (2, 72, 72, 8, 1, 256)
+    q, k, v = _inputs(case, seed=4)
+    got = FA.flash_attention(*(to_torch(a, dtype) for a in (q, k, v)))
+    want = j_attention_xla(*(to_jax(a, dtype) for a in (q, k, v)),
+                           q_pos=jnp.arange(72), kv_pos=jnp.arange(72),
+                           causal=True)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)

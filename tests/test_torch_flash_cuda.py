@@ -39,6 +39,10 @@ CASES = [
     (2, 130, 130, 4, 2, 224, True, 48, 30.0),
     (2, 40, 200, 12, 2, 128, False, 0, 0.0),
     (1, 100, 180, 12, 2, 128, True, 0, 0.0),
+    # paligemma-3b's heads (d = 256, G = 8): its serving prefill (256
+    # patches + 48 tokens), and a window, softcap and padded tile
+    (2, 304, 304, 8, 1, 256, True, 0, 0.0),
+    (1, 130, 130, 8, 1, 256, True, 48, 30.0),
 ]
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}

@@ -132,14 +132,6 @@ def test_norm_and_rope_match_reference():
         np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), 1e6)), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
-                                  "deepseek-moe-16b", "paligemma-3b"])
-def test_families_not_yet_ported_raise(arch):
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init(gen, tiny_config(arch))
-
-
 def test_make_batch_and_init_shapes():
     from repro_torch.configs.base import ShapeSpec
     cfg = tiny_config("qwen2-1.5b")
