@@ -83,9 +83,13 @@ raising (exit code != 0):
 13d. ``decode_consistency`` — tests/test_decode_consistency.py at full
                        width in bf16 for those three models: 4 decode
                        steps against the forward, max |Δlogit| within
-                       ``DECODE_REL_BOUND`` of the logits' abs-max.
+                       each model's bound of the logits' abs-max:
+                       ``DECODE_NOISE_MULTIPLE`` times its own forward
+                       noise floor, at most ``DECODE_REL_BOUND``.
 14. ``training``     — KERMIT tuning a live qwen2-1.5b training job at full
                        width (bf16, random weights from seed 0): ``Trainer``
+                       on the card's ('data', 'model') (1, 1) mesh (a world
+                       of one under NCCL, the rules' mesh while it runs)
                        + ``KermitSession`` with examples/autonomic_train.py's
                        session and phase a's shape (B = 8, S = 128),
                        ``attn_impl="pallas"``, 48 steps (ANALYSIS at window
@@ -103,12 +107,20 @@ raising (exit code != 0):
 17. ``fault_tolerance`` — examples/fault_tolerance.py's run: checkpoints
                        every 5 steps, failures at 8 and 17, against an
                        uninterrupted run.
-18. ``scenarios``    — the manifest's nine ported scenarios (the session,
-                       crash, serving and fleet kinds) at seeds 0 and 1
-                       through ``repro_torch.scenarios`` on the card: every
-                       gate true, per-scenario seconds; the two scenarios
-                       of unported kinds printed with the ROADMAP item each
-                       waits for.
+17a. ``distribution`` — the distributed runtime on the card's world of
+                       one: the backend, world size and mesh shape;
+                       ``elastic_restore`` of a reduced qwen2 train state
+                       (int8 moments) onto ``make_host_mesh``, bitwise,
+                       every tensor a DTensor on it; ``compressed_psum``
+                       over the one-rank group bit-equal to its
+                       single-process expression; ``gpipe_apply`` with one
+                       stage against the sequential stack.
+18. ``scenarios``    — the manifest's eleven scenarios (the session,
+                       crash, serving, fleet and both elastic kinds) at
+                       seeds 0 and 1 through ``repro_torch.scenarios`` on
+                       the card: every gate true, the gate sets of
+                       benchmarks/baselines/BENCH_scenarios.json,
+                       per-scenario seconds; ``scenarios_left_out`` empty.
 19. ``durable_history`` — full_history's config and stream under
                        ``KermitSupervisor`` (a snapshot every 512 windows),
                        uninterrupted and with a ``CrashFault`` at window
@@ -195,6 +207,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
@@ -232,7 +245,15 @@ from repro_torch.kermit import (ChaosExecutor, CrashFault,  # noqa: E402
                                 ExecConfig, KermitSupervisor)
 from repro_torch.scenarios import (UNPORTED_KINDS,  # noqa: E402
                                    load_manifest, run_manifest)
-from repro_torch.runtime.checkpoint import load_snapshot  # noqa: E402
+from repro_torch.runtime.checkpoint import (CheckpointManager,  # noqa: E402
+                                            _paths, load_snapshot)
+from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
+from repro_torch.optim.compression import (compressed_psum,  # noqa: E402
+                                           quantize)
+from repro_torch.runtime.fault import elastic_restore  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
+from repro_torch.train.pipeline import gpipe_apply, stage_split  # noqa: E402
+from repro_torch.train.step import init_train_state  # noqa: E402
 from repro_torch.core.simulator import generate, random_schedule  # noqa: E402
 from repro_torch.core.windows import make_windows  # noqa: E402
 
@@ -1794,7 +1815,12 @@ def phase_encdec(dev):
 # 0.10 from the forward with every argmax equal).  Each model's noise
 # floor (two forwards of different lengths) and an off-by-one position
 # (decode against the forward one token short) are printed beside it.
+# a model's decode is held to DECODE_NOISE_MULTIPLE times its own noise
+# floor (two forwards of different lengths, read at one position), at most
+# DECODE_REL_BOUND: one bound for all three let a cache fault of ~25x
+# paligemma's and seamless's noise pass
 DECODE_REL_BOUND = 0.25
+DECODE_NOISE_MULTIPLE = 3.0
 
 
 def decode_consistency(dev, eng, P: int = 32, G: int = 4) -> dict:
@@ -1804,8 +1830,9 @@ def decode_consistency(dev, eng, P: int = 32, G: int = 4) -> dict:
     as the reference test does); MoE with capacity factor 64 (drops
     depend on the batch), vlm after its patches, encdec through its own
     cache.  Max |Δlogit| against the logits' abs-max, asserted under
-    ``DECODE_REL_BOUND``; argmax agreement printed (greedy near-ties under
-    random weights)."""
+    ``min(DECODE_REL_BOUND, DECODE_NOISE_MULTIPLE × forward noise
+    floor)``; argmax agreement printed (greedy near-ties under random
+    weights)."""
     cfg = eng.cfg
     tun = Tunables(capacity_factor=64.0) if cfg.moe else Tunables()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1840,10 +1867,11 @@ def decode_consistency(dev, eng, P: int = 32, G: int = 4) -> dict:
     def rel(pairs):
         return max(float((a - b).abs().max()) for a, b in pairs) / absmax
     diff = max(float((a - b).abs().max()) for a, b in rows)
+    noise = rel(floor)
     rec = {"model": cfg.name, "P": P, "G": G, "max_abs_logit_diff": diff,
            "logit_absmax": absmax, "relative": diff / absmax,
-           "bound": DECODE_REL_BOUND,
-           "forward_noise_floor": rel(floor),
+           "bound": min(DECODE_REL_BOUND, DECODE_NOISE_MULTIPLE * noise),
+           "forward_noise_floor": noise,
            "off_by_one_relative": rel([(a, rows[i][1]) for i, (a, _)
                                        in enumerate(rows[1:])]),
            "argmax_agree": float(np.mean([float((a.argmax(-1) == b.argmax(-1))
@@ -1853,7 +1881,7 @@ def decode_consistency(dev, eng, P: int = 32, G: int = 4) -> dict:
     emit("decode_consistency", **rec)
     # within the bound, and at least twice as close to the forward at its
     # own position as to the forward one position short
-    assert rec["finite"] and rec["relative"] <= DECODE_REL_BOUND, rec
+    assert rec["finite"] and rec["relative"] <= rec["bound"], rec
     assert rec["relative"] < rec["off_by_one_relative"] / 2, rec
     return rec
 
@@ -1940,18 +1968,23 @@ def remat_memory(tr, batch) -> dict:
 
 def phase_training(dev) -> dict:
     """KERMIT tuning a live qwen2-1.5b training job at full width (bf16,
-    random weights from seed 0): ``Trainer`` + ``KermitSession`` with
-    examples/autonomic_train.py's session, phase a's shape and
-    ``attn_impl="pallas"``.  Asserts finite losses, every flash launch
+    random weights from seed 0): ``Trainer`` on the card's (1, 1) host mesh
+    + ``KermitSession`` with examples/autonomic_train.py's session, phase
+    a's shape and ``attn_impl="pallas"``.  Asserts the mesh is NCCL's
+    world of one and the rules' mesh at every event of the run, finite
+    losses, every flash launch
     bf16 (wgmma) and one per layer run (forward passes and remat
     recomputes, counted), an ANALYSIS with each ε-neighbour launch held
     to its plain version, no failed trial, and peak memory ordered
     full <= dots <= none; profiles one train step."""
     cfg = get_config("qwen2-1.5b")
     t0 = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    assert mesh.shape == {"data": 1, "model": 1} and \
+        mesh.backend == "nccl", (mesh, mesh.backend)
     session = KermitSession(train_session_config(), device=dev)
     tr = Trainer(cfg, TRAIN_SHAPE, TRAIN_OC, TRAIN_TUN, autonomic=session,
-                 seed=0, device=dev)
+                 seed=0, device=dev, mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     trials = []
@@ -1971,6 +2004,9 @@ def phase_training(dev) -> dict:
     events, seen, calls = [], [], collections.Counter()
     first, last = {}, collections.deque(maxlen=cfg.n_layers)
     session.subscribe(None, events.append)
+    on_mesh = []
+    session.subscribe(None, lambda e: on_mesh.append(
+        rules.current_mesh() is mesh))
     with contextlib.ExitStack() as stack:
         stack.enter_context(dbscan_inputs(seen))
         stack.enter_context(launch_inputs("flash_attention", first, last,
@@ -1988,6 +2024,8 @@ def phase_training(dev) -> dict:
     analyses = sum(e.kind == "analysis" for e in session.events)
     layer_runs = calls["block_apply"]
     assert rep.steps_done == TRAIN_STEPS and finite_losses(rep.losses), rep
+    assert on_mesh and all(on_mesh) and rules.current_mesh() is mesh, \
+        (len(on_mesh), rules.current_mesh())
     assert launches["flash_attention"] == layer_runs > 0, (launches,
                                                            layer_runs)
     assert layer_runs % cfg.n_layers == 0, layer_runs
@@ -2010,7 +2048,8 @@ def phase_training(dev) -> dict:
     emit("profile", what=f"train step B={TRAIN_SHAPE.global_batch} "
          f"S={TRAIN_SHAPE.seq_len} (qwen2-1.5b, bf16, pallas, remat dots)",
          **prof)
-    emit("training", model=cfg.name, params_init_s=init_s, seconds=seconds,
+    emit("training", model=cfg.name, mesh=mesh.shape,
+         backend=mesh.backend, params_init_s=init_s, seconds=seconds,
          steps=rep.steps_done, step_s=rep.step_times,
          step_s_median=statistics.median(rep.step_times),
          loss_first=rep.losses[0], loss_last=rep.losses[-1],
@@ -2027,6 +2066,7 @@ def phase_training(dev) -> dict:
          max_memory_allocated_gb=peak, remat_memory_gb=memory,
          summary=session.summary()["plugin"])
     session.close()
+    rules.set_mesh(None)
     recorded = [r for recs in first.values() for r in recs] + list(last)
     with torch.no_grad():
         flash_parity = check_recorded("training", "flash_attention",
@@ -2226,18 +2266,109 @@ def phase_fault_tolerance(dev) -> dict:
 # the self-healing path: scenarios, durable sessions, the model-guided Plan
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# distribution: the mesh, elastic restore, compressed_psum and GPipe
+# ---------------------------------------------------------------------------
+
+PIPE_SHAPE = dict(L=8, D=1024, B=64, M=4)     # layers, width, batch, micro
+PIPE_TOL = 2e-5                               # tests/test_torch_distributed
+
+
+def phase_distribution(dev) -> dict:
+    """The distributed runtime on the card's world of one (NCCL):
+    ``elastic_restore`` of a reduced qwen2 train state with int8 moments
+    onto ``make_host_mesh`` (bitwise, every tensor a DTensor on that
+    mesh); ``compressed_psum`` over the one-rank group bit-equal to its
+    single-process expression (quantize, re-quantize against the largest
+    scale, widen, sum, dequantize, divide by the ranks); ``gpipe_apply``
+    over a one-stage mesh against the sequential stack."""
+    from torch.distributed.tensor import DTensor
+    mesh = make_host_mesh(dev)
+    cfg = reduced(get_config("qwen2-1.5b"))
+    oc = OptConfig(lr=1e-3, warmup=2, moments_dtype="int8")
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                             oc, DEFAULT_TUNABLES)
+    state["opt"]["count"] = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(3, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, meta = elastic_restore(mgr, state, mesh,
+                                         rules.state_axes_tree(state))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    rules.set_mesh(None)
+    src, dst = list(_paths(state)), list(_paths(restored))
+    tensors = [b for _, b in dst if not isinstance(b, int)]
+    bitwise = len(src) == len(dst) and all(
+        ka == kb and (a == b if isinstance(a, int) else
+                      torch.equal(b.full_tensor(), a))
+        for (ka, a), (kb, b) in zip(src, dst))
+    on_mesh = all(isinstance(b, DTensor) and b.device_mesh is
+                  mesh.device_mesh and b.device.type == dev.type
+                  for b in tensors)
+    assert meta["step"] == 3 and bitwise and on_mesh, (meta, bitwise,
+                                                      on_mesh)
+
+    # an attention projection's gradient, in size
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((1536, 1536), generator=g, device=dev) * 1e-3
+    got = compressed_psum(x, mesh.group(mesh.axis_names))
+    _, s = quantize(x)
+    one = torch.full((), 1.0, dtype=torch.float32, device=dev)
+    want = torch.round(x / s).to(torch.int8).to(torch.int32).to(
+        torch.float32) * s / one
+    psum_equal = bool(torch.equal(got, want))
+    assert psum_equal, float((got - want).abs().max())
+
+    L_, D, B, Mb = (PIPE_SHAPE[k] for k in ("L", "D", "B", "M"))
+    ws = torch.randn((L_, D, D), generator=g, device=dev) * D ** -0.5
+    xp = torch.randn((B, D), generator=g, device=dev)
+
+    def stage_fn(w_stage, h):
+        for w in w_stage:
+            h = torch.tanh(h @ w)
+        return h
+    stage_mesh = make_mesh((1,), ("stage",), dev)
+    with torch.no_grad():
+        out = gpipe_apply(stage_split({"w": ws}, 1)["w"], xp, stage_fn,
+                          mesh=stage_mesh, n_microbatches=Mb)
+        seq = stage_fn(ws, xp)
+    pipe_err = float((out - seq).abs().max())
+    assert pipe_err <= PIPE_TOL, pipe_err
+    rec = {"backend": mesh.backend,
+           "world_size": torch.distributed.get_world_size(),
+           "mesh": mesh.shape, "stage_mesh": stage_mesh.shape,
+           "elastic_restore": {
+               "model": cfg.name, "step": meta["step"], "bitwise": bitwise,
+               "leaves": len(dst), "dtensors": len(tensors),
+               "placements": sorted({str(b.placements) for b in tensors}),
+               "on_mesh": on_mesh, "save_s": save_s,
+               "restore_s": restore_s},
+           "compressed_psum": {"shape": list(x.shape),
+                               "bit_equal": psum_equal},
+           "gpipe": {**PIPE_SHAPE, "stages": 1, "max_abs_err": pipe_err,
+                     "tol": PIPE_TOL}}
+    emit("distribution", **rec)
+    return rec
+
+
 def count_calls(owner, name: str, log: list):
     """Count the calls of ``owner.name`` (a class's method too) in ``log``."""
     return capture(owner, name, log, lambda a, out: None)
 
 
 def phase_scenarios(dev, seeds=(0, 1)) -> dict:
-    """The manifest's ported scenarios (the session, crash, serving and
-    fleet kinds) at both manifest seeds through ``repro_torch.scenarios``
-    on the card: every gate true.  The ε-neighbour kernel runs once per
-    analysis (the crash kind's two supervised runs and its replay, the
-    ``winner_matches_clean`` reruns and the fleet kind's isolated sessions
-    included)."""
+    """The manifest's scenarios (the session, crash, serving, fleet and
+    both elastic kinds) at both manifest seeds through
+    ``repro_torch.scenarios`` on the card: every gate true.  The
+    ε-neighbour kernel runs once per analysis (the crash kind's two
+    supervised runs and its replay, the ``winner_matches_clean`` reruns,
+    the fleet kind's isolated sessions and both halves of the elastic
+    session included)."""
     man = load_manifest()
     names = [n for n, spec in man["scenarios"].items()
              if spec.get("kind", "session") not in UNPORTED_KINDS]
@@ -2260,7 +2391,7 @@ def phase_scenarios(dev, seeds=(0, 1)) -> dict:
         arts = {(r["scenario"], r["seed"]): json.loads(
             (Path(out) / "chip" / r["artifact"]).read_text())
             for r in summary["runs"]}
-    assert summary["scenarios"] == names and len(names) == 9, names
+    assert summary["scenarios"] == names and len(names) == 11, names
     assert summary["device"] == str(dev), summary["device"]
     per = []
     for (name, seed), art in arts.items():
@@ -2274,9 +2405,9 @@ def phase_scenarios(dev, seeds=(0, 1)) -> dict:
                     "gates": {k: g["value"] for k, g in art["gates"].items()},
                     "recovery_ratio": m.get("recovery_ratio"),
                     "baseline_recovery_ratio": want["recovery_ratio"],
-                    "windows": m["windows"], "retunes": m["retunes"],
-                    "evaluations": m["evaluations"],
-                    "analyses": m["events"].get("analysis", 0)})
+                    "windows": m.get("windows"), "retunes": m.get("retunes"),
+                    "evaluations": m.get("evaluations"),
+                    "analyses": m.get("events", {}).get("analysis", 0)})
         emit("scenario", **per[-1])
     assert len(analyses) == len(seen) > 0, (len(analyses), len(seen))
     if dev.type == "cuda":
@@ -2991,6 +3122,10 @@ def main() -> int:
     release_memory()
 
     t0 = time.perf_counter()
+    phase_distribution(dev)
+    emit("phase_seconds", of="distribution",
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     scen = phase_scenarios(dev)
     emit("phase_seconds", of="scenarios", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -3012,6 +3147,9 @@ def main() -> int:
     t0 = time.perf_counter()
     clustering = phase_clustering(dev)
     emit("phase_seconds", of="clustering", seconds=time.perf_counter() - t0)
+
+    # every phase that used the card's one-rank group has run
+    torch.distributed.destroy_process_group()
 
     main = quick + full + served["nbr_parity"] + served_ssm["nbr_parity"] \
         + served_moe["nbr_parity"] + trained["nbr_parity"] + scen["parity"] \

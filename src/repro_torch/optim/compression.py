@@ -1,15 +1,15 @@
 """Gradient compression: int8 quantization with error feedback (EF-SGD).
 
-Port of ``repro/optim/compression.py``'s single-process building blocks:
-``apply_ef`` compresses one gradient tensor and carries the quantization
-residual in an error-feedback buffer, so the sum of the injected noise
-stays bounded; ``compress_tree`` applies it leaf by leaf.  The reference's
-``compressed_psum`` (the int8-payload all-reduce across pods) needs a
-process group and comes with the distribution slice (ROADMAP queue A).
+Port of ``repro/optim/compression.py``.  ``apply_ef`` compresses one
+gradient tensor and carries the quantization residual in an error-feedback
+buffer, so the sum of the injected noise stays bounded; ``compress_tree``
+applies it leaf by leaf.  ``compressed_psum`` replaces the all-reduce over
+a process group (the slow cross-pod axis) with an int8 payload.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.adamw import tree_map
 
@@ -40,3 +40,25 @@ def compress_tree(grads, ef_state):
 def ef_init(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def compressed_psum(x, group=None):
+    """int8-payload all-reduce over ``group`` (None: the default group),
+    averaged over its ranks.
+
+    Quantizes locally, takes the largest scale over the ranks,
+    re-quantizes against it so the sum is exact in int32, reduces the
+    int32-widened codes and dequantizes with that scale: the reference's
+    operations in its order.  (On a real link the payload is the int8
+    tensor.)
+    """
+    _, s = quantize(x)
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    total = torch.round(x / s_max).to(torch.int8).to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    # a 0-dim tensor on x's device: a host scalar divisor would be a
+    # reciprocal multiply on the card
+    n = torch.full((), dist.get_world_size(group), dtype=torch.float32,
+                   device=x.device)
+    return total.to(torch.float32) * s_max / n

@@ -12,8 +12,14 @@ int8 moment's codes and scales ``opt/m/layers/attn/wq/0`` and ``…/1``.
 bfloat16 leaves are stored as numpy stores the reference's (ml_dtypes)
 bf16 arrays: as 2-byte void (``|V2``) records of the same bits.  Writes
 go to step_<n>.tmp and are renamed into place, so a crash mid-save never
-corrupts the latest checkpoint.  The reference's ``shardings`` (elastic
-re-mesh) need a device mesh and come with the distribution slice.
+corrupts the latest checkpoint.
+
+Checkpoints are stored unsharded.  A DTensor leaf is saved whole
+(``full_tensor``, a collective every rank of its mesh joins), and under a
+process group of several ranks only rank 0 writes, the others waiting at a
+barrier until it has.  ``restore(..., shardings=)`` places each leaf on a
+mesh (``repro_torch.sharding.rules.tree_shardings``), so a checkpoint
+restores onto any mesh, larger or smaller than the one that saved it.
 """
 from __future__ import annotations
 
@@ -26,6 +32,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.rules import distribute_tree
 
 # reserved npz key carrying the snapshot's JSON metadata (utf-8 bytes)
 _META_KEY = "__meta__"
@@ -77,6 +87,8 @@ def _json_default(obj):
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as the array the reference would write: a tensor's values
     on the host (bf16 as ``|V2`` records of its bits), an int as int32."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -168,17 +180,22 @@ class CheckpointManager:
 
     def save(self, step: int, state, meta: Optional[dict] = None):
         final = self._step_dir(step)
-        tmp = final.with_suffix(".tmp")
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        np.savez(tmp / "arrays.npz", **_flatten(state))
-        (tmp / "meta.json").write_text(json.dumps(
-            dict(meta or {}, step=step)))
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)
-        self._gc()
+        arrays = _flatten(state)
+        ranks = dist.get_world_size() if dist.is_initialized() else 1
+        if ranks == 1 or dist.get_rank() == 0:
+            tmp = final.with_suffix(".tmp")
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+            np.savez(tmp / "arrays.npz", **arrays)
+            (tmp / "meta.json").write_text(json.dumps(
+                dict(meta or {}, step=step)))
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)
+            self._gc()
+        if ranks > 1:
+            dist.barrier()
         return final
 
     def steps(self):
@@ -193,10 +210,12 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None):
         """(state, meta) of ``step`` (default: the latest), each leaf in
-        the dtype and on the device of ``template``'s; (None, None) when
-        there is no checkpoint."""
+        the dtype and on the device of ``template``'s, and distributed
+        with its sharding where ``shardings`` (a tree in ``template``'s
+        structure) has one; (None, None) when there is no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
@@ -204,6 +223,8 @@ class CheckpointManager:
         with np.load(d / "arrays.npz", allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
         state = _unflatten(template, flat)
+        if shardings is not None:
+            state = distribute_tree(state, shardings)
         meta = json.loads((d / "meta.json").read_text())
         return state, meta
 

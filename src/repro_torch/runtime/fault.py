@@ -1,11 +1,12 @@
-"""Fault tolerance: failure injection and straggler detection.
+"""Fault tolerance: failure injection, straggler detection, elastic re-mesh.
 
 Port of ``repro/runtime/fault.py``.  Any step can die: recovery is
 restore-latest + replay (the data pipeline is counter-keyed, so replay is
 exact).  Stragglers present as step-time distribution shifts, detected with
-the same Welch machinery KERMIT uses for workload transitions.  The
-reference's ``elastic_restore`` reloads a checkpoint onto another device
-mesh; it comes with the distribution slice (ROADMAP queue A).
+the same Welch machinery KERMIT uses for workload transitions.  Losing
+nodes changes the mesh: ``elastic_restore`` reloads any checkpoint onto a
+smaller or larger mesh, since checkpoints are stored unsharded and
+resharding is a placement of each leaf.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.sharding import rules
 
 
 class SimulatedNodeFailure(RuntimeError):
@@ -111,3 +114,12 @@ class StragglerDetector:
         if ev:
             self.events.append(ev)
         return ev
+
+
+def elastic_restore(ckpt_mgr, state_template, mesh, axes_tree):
+    """Restore the latest checkpoint onto ``mesh`` (which may differ from
+    the mesh that saved it); its tensors come back as DTensors placed by
+    ``axes_tree``.  Returns (state, meta) or (None, None)."""
+    rules.set_mesh(mesh)
+    shardings = rules.tree_shardings(axes_tree) if mesh is not None else None
+    return ckpt_mgr.restore(state_template, shardings=shardings)

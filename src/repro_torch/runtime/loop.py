@@ -3,14 +3,19 @@ step, checkpoint/restart, failure injection + replay recovery, straggler
 detection, telemetry, and the KERMIT autonomic hook (MAPE-K Execute = a new
 step closure with the tunables the plug-in selects).
 
-Port of ``repro/runtime/loop.py`` for one device.  The autonomic
-integration runs through :class:`repro_torch.kermit.KermitSession`: the
-Trainer binds a measured-step ``CallableExecutor`` (Execute phase) if the
-session has none, subscribes to the typed event stream, and calls
-``session.step(sample)``.  A deprecated ``AutonomicManager`` is accepted
-and unwrapped to its session.  ``device=None`` means CUDA (raising without
-a card); a device mesh comes with the distribution slice, so ``mesh`` must
-be None.
+Port of ``repro/runtime/loop.py``.  The autonomic integration runs
+through :class:`repro_torch.kermit.KermitSession`: the Trainer binds a
+measured-step ``CallableExecutor`` (Execute phase) if the session has none,
+subscribes to the typed event stream, and calls ``session.step(sample)``.
+A deprecated ``AutonomicManager`` is accepted and unwrapped to its session.
+``device=None`` means CUDA (raising without a card).
+
+``mesh`` (a ``repro_torch.launch.mesh.Mesh`` on the Trainer's device type)
+becomes the sharding rules' mesh, as in the reference; None clears it.
+Under a mesh every rank runs the Trainer on the whole batch with the whole,
+replicated state, as the reference's jitted step without ``in_shardings``
+does; only the MoE's expert-parallel branch splits work over the ranks
+(``models/moe.py``), and its backward hands every rank the whole gradient.
 
 A measured trial runs the train step on the live state and drops the
 result; the step never modifies its input, so the trial leaves the run as
@@ -35,11 +40,13 @@ from repro_torch.core.autonomic import AutonomicManager
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kermit import CallableExecutor, EventKind, KermitSession
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim.adamw import OptConfig, tree_leaves
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.fault import (FailureInjector, SimulatedNodeFailure,
                                        StragglerDetector)
 from repro_torch.runtime.telemetry import StepStats, TelemetryEmitter
+from repro_torch.sharding import rules
 from repro_torch.train.step import init_train_state, make_train_step
 
 
@@ -71,13 +78,17 @@ class Trainer:
                                            AutonomicManager]] = None,
                  injector: Optional[FailureInjector] = None,
                  seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue A: "
-                "distribution); the Trainer runs on one device")
         self.cfg, self.shape, self.oc = cfg, shape, oc
         self.tun = tun
         self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh, "
+                            f"not {type(mesh).__name__}")
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device}, Trainer on "
+                             f"{self.device}")
+        self.mesh = mesh
+        rules.set_mesh(mesh)
         self.autonomic = autonomic.session \
             if isinstance(autonomic, AutonomicManager) else autonomic
         self.injector = injector

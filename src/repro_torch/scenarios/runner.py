@@ -2,12 +2,9 @@
 
 Port of ``repro/scenarios/runner.py``.  It reads the port's own copy of the
 manifest (``repro_torch/scenarios/manifest.json``, byte-equal to the
-reference's) and runs every scenario on one device (``device=None``: CUDA;
-``--device cpu`` on the command line).  The kinds ``session``, ``crash``,
-``serving`` and ``fleet`` are ported.  ``elastic`` and ``elastic_session``
-wait for the distribution slice (ROADMAP A7): a run that names one of them
-raises ``NotImplementedError`` before any scenario starts, so it is never
-counted as passed or skipped.
+reference's) and runs every scenario of it on one device (``device=None``:
+CUDA; ``--device cpu`` on the command line); the ``elastic`` kind restores
+onto that device's one-device mesh (``make_host_mesh``).
 
 Each scenario in ``manifest.json`` declares a simulated workload schedule, a
 fault schedule (``repro_torch.kermit.chaos`` specs), an optional resilience
@@ -22,6 +19,7 @@ paper's "without human intervention" claim into pass/fail data:
   winner_matches_clean  final committed Tunables equal a fault-free rerun's
                         (graceful degradation, not silent corruption)
   knob_pinned           the *applied* config holds the stuck knob's value
+  bitwise               elastic restore round-tripped exactly
   bitwise_decisions     a killed-and-restored supervised run decided
                         identically to an uninterrupted one (labels,
                         committed winners, event stream)
@@ -32,7 +30,6 @@ paper's "without human intervention" claim into pass/fail data:
   min_fleet_evals_saved ... and those transfers saved evaluations
   min_evals_saved_vs_isolated  the fleet spent fewer evaluations than S
                         isolated sessions on the same traces
-  (the elastic kinds' gates come with those kinds)
 
 Every run writes ``<scenario>--seed<k>--<impl>.json`` (schema-versioned,
 self-describing: seed + scenario spec + impl recorded) under
@@ -217,6 +214,96 @@ def _run_crash_restore_scenario(spec: dict, *, seed: int, impl: str,
     return metrics
 
 
+def _run_elastic_session_scenario(spec: dict, *, seed: int, impl: str,
+                                  device) -> dict:
+    """Mid-session elastic shrink: run to ``shrink_at_window``, checkpoint,
+    tear the whole stack down, rebuild it (the post-shrink cluster — the
+    manifest's straggler fault activates from the shrink window, pricing
+    the lost capacity), restore and finish.  Metrics come from the restored
+    session, whose replayed event stream spans both phases."""
+    import tempfile
+
+    ws = int(spec.get("window_size", 16))
+    cfg = _build_config(spec, impl)
+    shrink_w = int(spec.get("shrink_at_window", 16))
+    ex1, chaos1 = _build_stack(spec, seed=seed, device=device)
+    samples = chaos1.samples
+    cut = shrink_w * ws
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = Path(tmp) / "shrink.npz"
+        with KermitSession(cfg, executor=ex1, device=device) as s1:
+            s1.step_batch(samples[:cut])
+            s1.checkpoint(snap)
+        ex2, chaos2 = _build_stack(spec, seed=seed, device=device)
+        with KermitSession.restore(snap, executor=ex2, device=device) as s2:
+            s2.step_batch(samples[cut:])
+            summary = s2.summary()
+            final = s2.current.as_dict()
+            metrics = _session_metrics(list(s2.events), summary, final,
+                                       chaos2, ex2)
+    metrics["shrink_window"] = shrink_w
+    return metrics
+
+
+def _run_elastic_scenario(spec: dict, *, seed: int, impl: str,
+                          device) -> dict:
+    """Elastic mesh shrink: checkpoint a (tiny) train state, then
+    ``elastic_restore`` it onto a different (one-device) mesh and check
+    the round trip is bitwise exact; ``sharded``: every restored tensor is
+    a DTensor on that mesh."""
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import DEFAULT_TUNABLES, reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.checkpoint import CheckpointManager, _paths
+    from repro_torch.runtime.fault import elastic_restore
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import init_train_state
+
+    cfg = reduced(get_config(spec.get("arch", "qwen2-1.5b")))
+    small = dict(n_layers=2, d_model=64, n_heads=2,
+                 n_kv_heads=1 if cfg.n_kv_heads == 1 else 2,
+                 d_ff=128, vocab=256, head_dim=32)
+    if cfg.hybrid_period:
+        small["hybrid_period"] = 2
+        small["n_layers"] = 5
+    cfg = cfg.replace(**small)
+    oc = OptConfig(lr=1e-3, warmup=2)
+    state = init_train_state(torch.Generator(device=device).manual_seed(seed),
+                             cfg, oc, DEFAULT_TUNABLES)
+    # restore reads only the template's shapes, dtypes and device
+    template = rules.tree_map_with_path(
+        lambda _, a: torch.zeros_like(a) if isinstance(a, torch.Tensor)
+        else a, state)
+    step = int(spec.get("step", 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(Path(tmp))
+        mgr.save(step, state)
+        mesh = make_host_mesh(device)
+        axes = rules.state_axes_tree(template)
+        restored, meta = elastic_restore(mgr, template, mesh, axes)
+        rules.set_mesh(None)
+    src = [a for _, a in _paths(state)]
+    dst = [a for _, a in _paths(restored)]
+
+    def whole(a):
+        return a.full_tensor() if isinstance(a, DTensor) else a
+    bitwise = len(src) == len(dst) and all(
+        torch.equal(a, whole(b)) if isinstance(a, torch.Tensor)
+        else a == b for a, b in zip(src, dst))
+    sharded = all(isinstance(b, DTensor) and b.device_mesh is
+                  mesh.device_mesh for b in dst
+                  if not isinstance(b, int))
+    return {"step": int(meta["step"]), "bitwise": bool(bitwise),
+            "leaves": len(dst), "sharded": sharded}
+
+
 def _build_traffic(spec: dict, *, window_size: int, seed: int):
     """The seeded traffic trace a serving scenario declares: either a canned
     shape (``diurnal`` / ``bursty`` / ``kway``) with its keyword overrides,
@@ -374,25 +461,13 @@ def _run_fleet_scenario(spec: dict, *, seed: int, impl: str,
 
 _KINDS = {"session": _run_session_scenario,
           "fleet": _run_fleet_scenario,
+          "elastic": _run_elastic_scenario,
           "crash": _run_crash_restore_scenario,
+          "elastic_session": _run_elastic_session_scenario,
           "serving": _run_serving_scenario}
 
-# the manifest's kinds the port does not run yet, and the ROADMAP item each
-# waits for
-UNPORTED_KINDS = {
-    "elastic": "ROADMAP A7 (distribution: a device mesh and "
-               "elastic_restore)",
-    "elastic_session": "ROADMAP A7 (distribution: a device mesh and "
-                       "elastic_restore)",
-}
-
-
-def _check_ported(name: str, spec: dict) -> None:
-    kind = spec.get("kind", "session")
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"scenario {name!r} is of kind {kind!r}, which the port does not "
-            f"run yet: {UNPORTED_KINDS[kind]}")
+# the manifest's kinds the port does not run: none
+UNPORTED_KINDS: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +515,8 @@ def _eval_gates(name: str, spec: dict, metrics: dict, *,
         knob, want = g["knob_pinned"]["knob"], g["knob_pinned"]["value"]
         have = metrics.get("applied_tunables", {}).get(knob)
         gate("knob_pinned", have == want, have, want)
+    if g.get("bitwise"):
+        gate("bitwise", metrics.get("bitwise"), metrics.get("bitwise"), True)
     if g.get("bitwise_decisions"):
         gate("bitwise_decisions", metrics.get("decisions_match"),
              metrics.get("decisions_match"), True)
@@ -496,7 +573,6 @@ def run_scenario(name: str, spec: dict, *, seed: int = 0,
     ``device``: where the session runs (None: CUDA)."""
     dev = resolve_device(device)
     kind = spec.get("kind", "session")
-    _check_ported(name, spec)
     runner = _KINDS.get(kind)
     if runner is None:
         raise ValueError(f"unknown scenario kind {kind!r} for {name!r}; "
@@ -535,8 +611,7 @@ def run_manifest(manifest=None, *, out_dir="results",
     ``smoke`` restricts to the manifest's declared smoke subset (the CI
     shape); ``only`` filters scenario names; ``seeds``/``impls`` override
     the manifest-level sweeps; ``device`` is where every session runs
-    (None: CUDA).  A selected scenario of an unported kind raises before
-    any scenario runs.
+    (None: CUDA).
     """
     man = manifest if isinstance(manifest, dict) else load_manifest(manifest)
     names = list(man["scenarios"])
@@ -549,8 +624,6 @@ def run_manifest(manifest=None, *, out_dir="results",
         names = [n for n in names if n in keep]
     seeds = list(seeds if seeds is not None else man.get("seeds", [0]))
     impls = list(impls if impls is not None else man.get("impls", ["auto"]))
-    for name in names:
-        _check_ported(name, man["scenarios"][name])
     dev = resolve_device(device)
 
     run_id = run_id or _default_run_id(man)

@@ -1,12 +1,14 @@
 """The port's scenario runner against the reference's.
 
 The manifest the port reads is its own copy, byte-equal to the
-reference's.  Every simulator-driven scenario (the ``session``, ``crash``
-and ``fleet`` kinds) at seed 0 on the CPU, with the reference's draws
-injected into the port's fits, gives the reference's metrics and gate
-outcomes.  Artifacts are schema-versioned, the module runs as a program,
-the manifest's smoke subset runs, and the kinds the port does not run yet
-raise before any scenario starts.
+reference's, and the port runs every kind of it.  Every simulator-driven
+scenario (the ``session``, ``crash`` and ``fleet`` kinds) and both elastic
+ones (``elastic``: a train state restored onto the one-device mesh;
+``elastic_session``: a session checkpointed mid-run and restored onto a
+rebuilt stack) at seed 0 on the CPU, with the reference's draws injected
+into the port's fits, give the reference's metrics and gate outcomes.
+Artifacts are schema-versioned, the module runs as a program, and the
+manifest's smoke subset runs.
 """
 import json
 import os
@@ -26,7 +28,9 @@ ROOT = Path(__file__).resolve().parents[1]
 MANIFEST = load_manifest()
 SIMULATED = sorted(n for n, s in MANIFEST["scenarios"].items()
                    if s.get("kind", "session") in ("session", "crash",
-                                                   "fleet"))
+                                                   "fleet", "elastic",
+                                                   "elastic_session"))
+ELASTIC = ["elastic_shrink", "elastic_shrink_midsession"]
 
 
 def test_manifest_copy_byte_equal_to_reference():
@@ -34,9 +38,8 @@ def test_manifest_copy_byte_equal_to_reference():
         J.DEFAULT_MANIFEST.read_bytes()
     assert P.DEFAULT_MANIFEST != J.DEFAULT_MANIFEST
     kinds = {s.get("kind", "session") for s in MANIFEST["scenarios"].values()}
-    assert kinds == set(P._KINDS) | set(UNPORTED_KINDS)
-    assert set(P._KINDS) == {"session", "crash", "serving", "fleet"}
-    assert set(UNPORTED_KINDS) == {"elastic", "elastic_session"}
+    assert kinds == set(P._KINDS) == set(J._KINDS)
+    assert UNPORTED_KINDS == {}
 
 
 @pytest.mark.parametrize("name", SIMULATED)
@@ -89,18 +92,27 @@ def test_module_runs_as_a_program(tmp_path):
     assert summary["scenarios"] == ["transient_failures", "crash_restore"]
 
 
-@pytest.mark.parametrize("only,item", [
-    (["crash_restore", "elastic_shrink"], "A7"),
-    (["elastic_shrink_midsession"], "A7"),
-    (None, "A7"),                  # elastic_shrink comes first
-], ids=["elastic_after_a_ported_one", "elastic_session", "all"])
-def test_unported_kinds_raise_before_any_scenario(tmp_path, only, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_manifest(out_dir=tmp_path, run_id="x", only=only, device="cpu")
-    assert not (tmp_path / "x").exists()        # nothing ran, nothing saved
-    for name in ("elastic_shrink", "elastic_shrink_midsession"):
-        with pytest.raises(NotImplementedError, match="does not run yet"):
-            run_scenario(name, MANIFEST["scenarios"][name], device="cpu")
+def test_elastic_scenarios_run_from_the_manifest(tmp_path):
+    """Both elastic kinds through ``run_manifest``, at both manifest
+    seeds: every gate passes, and the artifacts carry what each restore
+    measured."""
+    summary = run_manifest(out_dir=tmp_path, run_id="e", only=ELASTIC,
+                           device="cpu")
+    assert summary["scenarios"] == ELASTIC and summary["all_ok"]
+    assert summary["seeds"] == MANIFEST["seeds"]
+    assert len(summary["runs"]) == 2 * len(MANIFEST["seeds"])
+    for run in summary["runs"]:
+        art = json.loads((tmp_path / "e" / run["artifact"]).read_text())
+        m = art["metrics"]
+        if art["scenario"] == "elastic_shrink":
+            assert art["gates"]["bitwise"]["pass"]
+            assert m["bitwise"] and m["sharded"] and m["step"] == 3
+            assert m["leaves"] > 0
+        else:
+            assert set(art["gates"]) == {"min_recovery_ratio",
+                                         "require_events"}
+            assert m["shrink_window"] == 16 and m["recovered"]
+            assert {"checkpoint", "restore"} <= set(m["events"])
 
 
 def test_smoke_subset_runs(tmp_path):

@@ -43,7 +43,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import train_state_from_jax
 from repro_torch.kermit import (AnalysisConfig, KermitConfig, KermitSession,
                                 MonitorConfig, PlanConfig)
-from repro_torch.optim.adamw import OptConfig
+from repro_torch.optim.adamw import OptConfig, tree_leaves
 from repro_torch.runtime.fault import FailureInjector
 from torch_parity import reference_draws  # noqa: F401 (fixture)
 
@@ -200,13 +200,32 @@ def test_fault_tolerance_example_matches_reference(tmp_path):
 
 
 def test_trainer_device_rule_and_mesh():
+    """A Trainer on the one-device host mesh sets the rules' mesh and
+    trains bit-equal to one without; a mesh-less Trainer clears it; a
+    non-mesh object raises."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
     cfg = reduced(get_config("qwen2-1.5b")).replace(n_layers=2, vocab=256)
     shape = ShapeSpec("t", 32, 2, "train")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PL.Trainer(cfg, shape)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         PL.Trainer(cfg, shape, mesh=object(), device="cpu")
+    mesh = make_host_mesh("cpu")
+    runs = {}
+    for m in (mesh, None):
+        tr = PL.Trainer(cfg, shape, mesh=m, device="cpu")
+        assert rules.current_mesh() is m
+        try:
+            rep = tr.run(2)
+        finally:
+            tr.pipeline.close()
+        runs[m is None] = (rep.losses, [p.clone() for p in
+                                        tree_leaves(tr.state["params"])])
+    assert runs[False][0] == runs[True][0] and len(runs[True][0]) == 2
+    assert all(torch.equal(a, b) for a, b in zip(runs[False][1],
+                                                 runs[True][1]))
 
 
 def test_failed_trials_cost_inf_and_are_counted():
