@@ -153,6 +153,21 @@ raising (exit code != 0):
 23. ``clustering``   — ``benchmarks/bench_clustering.py`` (Fig. 10):
                        DBSCAN, kmeans at k and k + 2 and single-link over
                        six seeded window series; Awt and purity.
+24. ``launch``       — the launch tooling: ``dryrun`` of qwen2-1.5b
+                       ``train_4k`` on the shape-only 16x16 mesh and of
+                       deepseek-moe-16b ``decode_32k`` on the 2x16x16 mesh
+                       (roofline terms at the H100 SXM's constants, an
+                       estimate); ``hillclimb`` of qwen2-1.5b ``train_4k``
+                       on the card's (1, 1) mesh (16 rows of 4096, the
+                       16x16 mesh's data shard) from ``attn_impl="pallas"``
+                       and ``verify_budget`` on its trace: each tried
+                       candidate's real step, its measured temp or ``oom``,
+                       the chosen one's step seconds against ``est_s``,
+                       ``MemTracker``'s estimate against the measured temp;
+                       the flash kernel in every layer run of every step
+                       (the two steps of a candidate that fit counted
+                       exactly), each bf16, recorded inputs held to the
+                       plain version.
 
 For each main-path phase every kernel's launch counter is set to 0 just
 before the run and read just after: the ε-neighbour kernel must have run
@@ -212,7 +227,7 @@ import torch.distributed  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import (DEFAULT_TUNABLES,  # noqa: E402
-                                      ShapeSpec, Tunables, reduced)
+                                      SHAPES, ShapeSpec, Tunables, reduced)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import analyser as A  # noqa: E402
 from repro_torch.core.dbscan import (  # noqa: E402
@@ -256,6 +271,11 @@ from repro_torch.train.pipeline import gpipe_apply, stage_split  # noqa: E402
 from repro_torch.train.step import init_train_state  # noqa: E402
 from repro_torch.core.simulator import generate, random_schedule  # noqa: E402
 from repro_torch.core.windows import make_windows  # noqa: E402
+from repro_torch.analysis.roofline import H100, model_flops  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import hillclimb as HC  # noqa: E402
+from repro_torch.launch import verify_budget as VB  # noqa: E402
+from repro_torch.launch.mesh import ShapeMesh  # noqa: E402
 
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nbr_adjacency.cu"
 KERNEL_REPLACES = "src/repro/kernels/pairdist.py:117"
@@ -1951,6 +1971,27 @@ def peak_gb(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+@contextlib.contextmanager
+def card_runs(calls: collections.Counter, runs: list):
+    """Record each ``CardCell.run`` of the launch tooling: its tunables,
+    whether it ran out of memory, and the flash launches and layer runs
+    (``calls["block_apply"]``, counted by ``count_entries``) it made."""
+    real = DR.CardCell.run
+
+    def run(cell, tun):
+        flash, layer_runs = FA.LAUNCHES, calls["block_apply"]
+        rec = real(cell, tun)
+        runs.append({"tun": tun, "oom": rec["oom"],
+                     "flash": FA.LAUNCHES - flash,
+                     "layer_runs": calls["block_apply"] - layer_runs})
+        return rec
+    DR.CardCell.run = run
+    try:
+        yield
+    finally:
+        DR.CardCell.run = real
+
+
 def remat_memory(tr, batch) -> dict:
     """For each remat policy: the peak memory of one forward + backward
     (loss and every gradient) and of one whole train step, above the live
@@ -2984,6 +3025,128 @@ def phase_clustering(dev, n_seeds: int = 6) -> dict:
             "parity": check_main_path("clustering", seen, dev)}
 
 
+# the card's hillclimb starts where the training phase runs
+LAUNCH_START = Tunables(attn_impl="pallas")
+LAUNCH_ARCH, LAUNCH_SHAPE = "qwen2-1.5b", "train_4k"
+
+
+def phase_launch(dev) -> dict:
+    """The launch tooling (slice 10): two dry-run cells on shape-only
+    meshes, then the card's hillclimb of qwen2-1.5b ``train_4k`` and
+    ``verify_budget`` on its trace, every candidate a real step on the
+    (1, 1) mesh.  Asserts finite estimates, a chosen candidate that fits
+    80 GB, and the flash kernel (bf16, wgmma) launched in every layer run
+    of the steps of each candidate that fit (exactly: microbatches x
+    layers x 2 under remat, per step) and at most once per layer run of
+    a step that ran out of memory, its recorded inputs held to the plain
+    version."""
+    t_phase = time.perf_counter()
+    for arch, shape, multi_pod in ((LAUNCH_ARCH, LAUNCH_SHAPE, False),
+                                   ("deepseek-moe-16b", "decode_32k", True)):
+        t0 = time.perf_counter()
+        rec = DR.lower_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+        r = rec["roofline"]
+        assert all(np.isfinite(r[k]) and r[k] > 0 for k in
+                   ("compute_s", "memory_s", "collective_s")), r
+        emit("launch_dryrun", arch=arch, shape=shape, mesh=rec["mesh"],
+             estimate_at=f"{H100.name}: {H100.peak_flops:.4g} FLOP/s, "
+             f"{H100.hbm_bw:.4g} B/s, link {H100.link_bw:.4g} B/s",
+             compute_s=r["compute_s"], memory_s=r["memory_s"],
+             collective_s=r["collective_s"], bottleneck=r["bottleneck"],
+             useful_ratio=r["useful_ratio"], memory=rec["memory"],
+             collectives=rec["collectives"], seconds=time.perf_counter() - t0)
+
+    cfg = get_config(LAUNCH_ARCH)
+    first, last = {}, collections.deque(maxlen=1)
+    calls, runs = collections.Counter(), []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(launch_inputs("flash_attention", first, last, 1))
+        stack.enter_context(count_entries(T, "block_apply", calls))
+        stack.enter_context(card_runs(calls, runs))
+        reset_counters()
+        t0 = time.perf_counter()
+        hc = HC.hillclimb(LAUNCH_ARCH, LAUNCH_SHAPE, card=True, device=dev,
+                          start=LAUNCH_START)
+        search_s = time.perf_counter() - t0
+        climb = hc["hillclimb"]
+        assert climb["evaluations"] == len(climb["trace"]) > 1, climb
+        release_memory()
+        t0 = time.perf_counter()
+        vb = VB.main(["--arch", LAUNCH_ARCH, "--shape", LAUNCH_SHAPE,
+                      "--card"])
+        verify_s = time.perf_counter() - t0
+        launches = counters()
+    release_memory()
+    budgeted = vb["hillclimb"]["budgeted"]
+    assert budgeted is not None, vb["hillclimb"]["tried"]
+    tun = Tunables(**budgeted["tun"])
+    temp = budgeted["memory"]["temp_size_in_bytes"]
+    assert 0 < temp <= HC.HBM_BUDGET, budgeted
+    # every flash launch of the phase is one of these steps', and a run
+    # that fit took exactly its two steps' layer runs through the kernel:
+    # microbatches x layers, twice under remat (forward and recompute); a
+    # step that ran out of memory stopped inside some layer, before or
+    # after its attention
+    assert sum(r["flash"] for r in runs) == launches["flash_attention"], (
+        runs, launches)
+    for r in runs:
+        if r["oom"]:
+            assert 0 <= r["flash"] <= r["layer_runs"], r
+        else:
+            per_step = r["tun"].microbatches * cfg.n_layers * (
+                1 + (r["tun"].remat != "none"))
+            assert r["flash"] == r["layer_runs"] == 2 * per_step, r
+    assert any(not r["oom"] and r["tun"] == tun for r in runs), runs
+    assert_tensor_core_route(launches)
+    shape = DR.card_shape(SHAPES[LAUNCH_SHAPE])
+    t0 = time.perf_counter()
+    temp_est = DR.estimate_temp(cfg, shape, tun, OptConfig(),
+                                ShapeMesh((1, 1), ("data", "model")))
+    estimate_s = time.perf_counter() - t0
+    step_s = budgeted["step_s"]
+    mf = model_flops(cfg, shape, hc["n_params_active"])
+    recorded = [r for recs in first.values() for r in recs] + list(last)
+    assert {tuple(a[0].shape[1:]) for a, _ in recorded} == {
+        (shape.seq_len, QWEN2["H"], QWEN2["d"])}, [a[0].shape
+                                                  for a, _ in recorded]
+    with torch.no_grad():
+        parity = check_recorded("launch", "flash_attention", recorded)
+    del recorded, first, last
+    release_memory()
+    B = shape.global_batch // tun.microbatches
+    timed = time_flash(dev, B, shape.seq_len)
+    emit("launch", model=cfg.name, shape={"B": shape.global_batch,
+                                          "S": shape.seq_len},
+         reduced={"global_batch": [SHAPES[LAUNCH_SHAPE].global_batch,
+                                   shape.global_batch]},
+         start=LAUNCH_START.as_dict(), evaluations=climb["evaluations"],
+         baseline_est_s=climb["baseline"]["est_s"],
+         best_est_s=climb["best_est_s"], best=climb["best"],
+         winner_step=hc["step"], search_s=search_s,
+         tried=[{"tun": {k: t["tun"][k] for k in HC.knob_space(
+             cfg, "train")}, "est_s": t["est_s"],
+             "synthetic": t.get("synthetic", False),
+             "temp_gb": None if t.get("oom") else t["temp_bytes"] / 1e9,
+             "oom": t.get("oom", False)}
+             for t in vb["hillclimb"]["tried"]],
+         chosen={k: budgeted["tun"][k] for k in HC.knob_space(cfg, "train")},
+         chosen_est_s=budgeted["est_s"], chosen_step_s=step_s,
+         est_over_step=budgeted["est_over_step"],
+         model_flops=mf, mfu_989=mf / (step_s * H100.peak_flops),
+         temp_gb_measured=temp / 1e9, temp_gb_memtracker=temp_est / 1e9,
+         memtracker_over_measured=temp_est / temp,
+         state_gb=budgeted["step"]["state_bytes"] / 1e9,
+         verify_s=verify_s, estimate_s=estimate_s,
+         flash_launches=launches["flash_attention"],
+         card_runs=[{"tun": {k: getattr(r["tun"], k) for k in HC.knob_space(
+             cfg, "train")}, **{k: r[k] for k in ("oom", "flash",
+                                                  "layer_runs")}}
+             for r in runs],
+         flash_timed={"B": B, "S": shape.seq_len, **summary(timed)},
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "parity": parity, "timed": timed}
+
+
 def release_memory() -> None:
     """Return the memory of engines the caller has dropped."""
     gc.collect()
@@ -3147,6 +3310,11 @@ def main() -> int:
     t0 = time.perf_counter()
     clustering = phase_clustering(dev)
     emit("phase_seconds", of="clustering", seconds=time.perf_counter() - t0)
+    release_memory()
+    t0 = time.perf_counter()
+    launch = phase_launch(dev)
+    timed[LAUNCH_SHAPE] = launch["timed"]
+    emit("phase_seconds", of="launch", seconds=time.perf_counter() - t0)
 
     # every phase that used the card's one-rank group has run
     torch.distributed.destroy_process_group()
@@ -3171,11 +3339,13 @@ def main() -> int:
                       "hybrid": hybrid["launches"]["flash_attention"],
                       "serving_moe": served_moe["launches"]["flash_attention"],
                       "vlm": vlm["launches"]["flash_attention"],
-                      "training": trained["launches"]["flash_attention"]}
+                      "training": trained["launches"]["flash_attention"],
+                      "launch": launch["launches"]["flash_attention"]}
     flash_parity = served["parity"]["flash_attention"] + \
         hybrid["parity"]["flash_attention"] + \
         served_moe["parity"]["flash_attention"] + \
-        vlm["parity"]["flash_attention"] + trained["parity"]
+        vlm["parity"]["flash_attention"] + trained["parity"] + \
+        launch["parity"]
     ssd_by_phase = {"serving_ssm": served_ssm["launches"]["ssd_scan"],
                     "hybrid": hybrid["launches"]["ssd_scan"],
                     "training_ssm": trained_ssm["launches"]["ssd_scan"]}
@@ -3217,6 +3387,7 @@ def main() -> int:
         "device_ms_zamba2": hybrid["device_ms"]["flash"][0],
         "device_ms_deepseek": moe_dev["flash"][0],
         "device_ms_paligemma": vlm["device_ms"]["flash"][0],
+        "device_ms_train_4k": launch["timed"]["device_ms"],
         "design": FA.DESIGN,
         "backward": "recompute through models/layers.attention_xla, "
         "differentiated by autograd (FlashAttention, a torch.autograd."
@@ -3225,6 +3396,7 @@ def main() -> int:
         "launches_by_dtype": by_dtype(served["launches"], hybrid["launches"],
                                       served_moe["launches"],
                                       vlm["launches"], trained["launches"],
+                                      launch["launches"],
                                       name="flash_attention"),
         "timed": {(f"{key}_B{rec['B']}xS{rec['S']}" if isinstance(key, str)
                    else f"B{key[0]}xS{key[1]}"): summary(rec)

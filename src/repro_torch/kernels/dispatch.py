@@ -16,12 +16,15 @@ the strategy; here the device of the tensor does:
   DBSCAN path, the dense ``pairdist`` kernel), a CPU tensor takes its
   plain version.
 
+A kernel's CUDA wrapper refuses fake tensors (``refuse_fake``).
+
 Entry points take ``device=None`` to mean CUDA, and raise when CUDA is
 missing: nothing falls back to the CPU unless the caller asks for it.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 IMPLS = ("auto", "fast", "pallas", "pallas_interpret", "xla", "ref",
          "legacy", "seed")
@@ -38,6 +41,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def refuse_fake(*tensors) -> None:
+    """Raise on a fake tensor (``FakeTensorMode``, as the dry run makes):
+    it has no memory, and its data pointer is 0, so a kernel launched on
+    it would read and write through null pointers."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError("a CUDA kernel cannot run on fake tensors; the "
+                           "dry run makes them on the CPU, where each "
+                           "kernel takes its plain version")
 
 
 def resolve(impl: str | None, device) -> str:

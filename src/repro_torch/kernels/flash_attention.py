@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.dispatch import refuse_fake
 
 NEG = -1e30
 
@@ -173,6 +174,7 @@ def _flash_fwd_cuda(q, k, v, kv_len=None, *, causal=True, window=0,
     ``bk`` only sets the padded KV length that rows seeing no key divide
     by, as the reference's tile does."""
     global LAUNCHES
+    refuse_fake(q, k, v)
     _check_cuda_inputs(q, k, v)
     if q.dtype == torch.bfloat16:
         (q, qs), (k, ks), (v, vs) = (_tma_operand(t) for t in (q, k, v))

@@ -112,6 +112,7 @@ def _pairdist_cuda(x):
     is cast to float32, as the TPU kernel casts its tiles.  The kernel's
     own 64 × 128 tiles give the entries any tile grid gives."""
     global DENSE_LAUNCHES
+    dispatch.refuse_fake(x)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     if x.dim() != 2 or not x.is_floating_point():
@@ -205,6 +206,7 @@ def _neighbor_adjacency_cuda(x, *, eps_sq: float, block: int):
     """Launch ``csrc/nbr_adjacency.cu`` on the current stream.  Outputs have
     exactly the reference's Npad and width."""
     global LAUNCHES
+    dispatch.refuse_fake(x)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:

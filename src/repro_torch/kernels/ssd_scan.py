@@ -178,6 +178,7 @@ def _ssd_fwd_cuda(x, dt, A, Bm, Cm, *, chunk: int):
     Cm are zero-padded to a multiple of 8 states); writes new y and state
     tensors."""
     global LAUNCHES
+    dispatch.refuse_fake(x, dt, A, Bm, Cm)
     Bsz, S, H, P = x.shape
     Q = min(chunk, S)
     _check_cuda_inputs(x, dt, A, Bm, Cm, Q)

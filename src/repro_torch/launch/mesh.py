@@ -18,6 +18,11 @@ for the CPU.  So ``make_host_mesh()`` works in a fresh process with no
 process.  One card is a world of one for NCCL, which refuses two ranks on
 one GPU; a mesh of several ranks runs one process per rank.
 
+``ShapeMesh`` is a mesh of names and sizes alone, with no process group
+and no device: what the sharding rules read, and all that the dry run
+(``launch/dryrun.py``) needs of the production meshes.  It plays the part
+of the reference's 512 forced host devices.
+
 Functions, not module constants: importing this module starts no group.
 """
 from __future__ import annotations
@@ -96,6 +101,26 @@ class Mesh:
         return f"Mesh({self.shape}, device={self.device})"
 
 
+class ShapeMesh:
+    """Named axes and their sizes, nothing else: the rules' view of a mesh
+    (``axis_names``, ``shape``) and its ``size``.  Nothing can run on it."""
+
+    def __init__(self, shape, axis_names):
+        shape, axis_names = tuple(shape), tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} does not name its axes "
+                             f"{axis_names}")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"ShapeMesh({self.shape})"
+
+
 def _start_one_rank_group(dev: torch.device) -> None:
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             store=dist.HashStore(), world_size=1, rank=0)
@@ -139,17 +164,28 @@ def make_mesh(shape, axis_names, device=None) -> Mesh:
     return Mesh(dm, dev)
 
 
+def _production_layout(multi_pod: bool) -> tuple:
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """Single pod: (16, 16) = ('data', 'model') = 256 devices; multi-pod:
     (2, 16, 16) = ('pod', 'data', 'model') = 512, the 'pod' axis carrying
     only data-parallel gradient reduction.  Raises below that many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = _production_layout(multi_pod)
     n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world < n:
         raise RuntimeError(f"mesh needs {n} devices, found {world}")
     return make_mesh(shape, axes, device)
+
+
+def make_shape_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The production mesh's axes and sizes (``make_production_mesh``'s)
+    as a ``ShapeMesh``: no ranks needed."""
+    return ShapeMesh(*_production_layout(multi_pod))
 
 
 def make_host_mesh(device=None) -> Mesh:
