@@ -19,7 +19,6 @@ Implements paper Algorithm 2 + the automated training pipeline (§7):
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -35,6 +34,7 @@ from repro_torch.core.lstm import HORIZONS, PredictorConfig, WorkloadPredictor
 from repro_torch.core.synthesizer import sample_pure, synthesize
 from repro_torch.core.windows import WindowSeries, rate_of_change
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.runtime import trace as T
 
 
 # fast-path training bounds: bootstrap draws per tree, predictor training
@@ -95,19 +95,19 @@ class KermitAnalyser:
     # -- Algorithm 2 ----------------------------------------------------------
 
     def discover(self, ws: WindowSeries) -> AnalysisReport:
-        t0 = time.perf_counter()
+        outer = T.span("analyse.discover")
         rep = AnalysisReport(n_windows=len(ws))
         trans = self.detector.batch(ws)
         rep.n_transition_windows = int(trans.sum())
         steady_idx = np.where(~trans)[0]
         if steady_idx.size == 0:
-            rep.discover_seconds = time.perf_counter() - t0
+            rep.discover_seconds = outer.close()
             return rep
         X = ws.mean[steady_idx]
-        t1 = time.perf_counter()
-        labels = dbscan(X, self.eps, self.min_pts, impl=self.dbscan_impl,
-                        device=self.device)
-        rep.dbscan_seconds = time.perf_counter() - t1   # labels are on the host
+        with T.span("analyse.dbscan") as sp:
+            labels = dbscan(X, self.eps, self.min_pts, impl=self.dbscan_impl,
+                            device=self.device)
+        rep.dbscan_seconds = sp.seconds     # labels are on the host
         rep.clusters = int(labels.max() + 1) if labels.size else 0
 
         window_labels = np.full(len(ws), -1, np.int64)
@@ -142,7 +142,7 @@ class KermitAnalyser:
             if r != u:
                 window_labels[window_labels == u] = r
         self.db.save()
-        rep.discover_seconds = time.perf_counter() - t0
+        rep.discover_seconds = outer.close()
         return rep
 
     # -- training pipeline (§7.2 steps 1-9) ------------------------------------
@@ -151,9 +151,10 @@ class KermitAnalyser:
               synthesize_hybrids: bool = True, zsl_k: int = 2, seed: int = 0,
               predictor_cfg: Optional[PredictorConfig] = None,
               forest_cfg: Optional[ForestConfig] = None):
-        t0 = time.perf_counter()
+        outer = T.span("analyse.train")
         wl = rep.window_labels
         if wl is None or (wl >= 0).sum() == 0:
+            outer.close()
             return self
         mask = wl >= 0
         X = ws.mean[mask]
@@ -194,19 +195,20 @@ class KermitAnalyser:
                                         n_classes=min(n_classes,
                                                       self.max_classes),
                                         max_samples=max_samples)
-        t1 = time.perf_counter()
-        self.classifier = RandomForest(fc, device=self.device).fit(
-            X, y, seed=seed, compiled=self.fast)
+        with T.span("analyse.forest") as sp:
+            self.classifier = RandomForest(fc, device=self.device).fit(
+                X, y, seed=seed, compiled=self.fast)
 
-        # transition classifier on rate-of-change features
-        roc = rate_of_change(ws.mean)
-        ty = (wl < 0).astype(np.int64)       # 1 = transition/noise window
-        tfc = ForestConfig(n_trees=16, depth=5, n_classes=2,
-                           max_samples=max_samples)
-        self.transition_classifier = RandomForest(
-            tfc, device=self.device).fit(roc, ty, seed=seed,
-                                         compiled=self.fast)
-        rep.forest_seconds = self._since(t1)
+            # transition classifier on rate-of-change features
+            roc = rate_of_change(ws.mean)
+            ty = (wl < 0).astype(np.int64)   # 1 = transition/noise window
+            tfc = ForestConfig(n_trees=16, depth=5, n_classes=2,
+                               max_samples=max_samples)
+            self.transition_classifier = RandomForest(
+                tfc, device=self.device).fit(roc, ty, seed=seed,
+                                             compiled=self.fast)
+            self._sync()
+        rep.forest_seconds = sp.seconds
 
         # predictor on the label sequence (steady windows carry labels;
         # transitions inherit the previous label for sequence continuity) —
@@ -234,23 +236,25 @@ class KermitAnalyser:
                 batch=max(16, min(_FAST_PREDICTOR_BATCH, n_samples)),
                 early_stop_tol=1e-2, patience=2, target_loss=0.15,
                 max_train_samples=_FAST_PREDICTOR_SAMPLES)
-        t1 = time.perf_counter()
-        try:
-            self.predictor = WorkloadPredictor(pc, device=self.device).fit(
-                seq, seed=seed, compiled=self.fast)
-        except ValueError:
-            self.predictor = None            # sequence too short
-        rep.predictor_seconds = self._since(t1)
+        with T.span("analyse.predictor") as sp:
+            try:
+                self.predictor = WorkloadPredictor(
+                    pc, device=self.device).fit(seq, seed=seed,
+                                                compiled=self.fast)
+            except ValueError:
+                self.predictor = None        # sequence too short
+            self._sync()
+        rep.predictor_seconds = sp.seconds
         self.db.save()
-        rep.train_seconds = self._since(t0)
+        self._sync()
+        rep.train_seconds = outer.close()
         return self
 
-    def _since(self, t0: float) -> float:
-        """Seconds since ``t0``, after the device has finished the work
-        (CUDA launches are asynchronous), so reported latency is honest."""
+    def _sync(self) -> None:
+        """Wait for the device (CUDA launches are asynchronous), so that a
+        span ended after it holds the work, not just its launch."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter() - t0
 
     def run(self, ws: WindowSeries, **kw) -> AnalysisReport:
         rep = self.discover(ws)

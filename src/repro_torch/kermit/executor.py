@@ -55,7 +55,6 @@ Ships two implementations:
 from __future__ import annotations
 
 import math
-import time
 from functools import partial
 from typing import (Callable, Optional, Protocol, Sequence,
                     runtime_checkable)
@@ -66,6 +65,7 @@ import torch
 from repro_torch.configs.base import (DEFAULT_TUNABLES, TUNABLE_CATEGORIES,
                                 Tunables, tunables_to_arrays)
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.runtime import trace as T
 
 
 @runtime_checkable
@@ -128,12 +128,17 @@ class MeasureCounters:
         self.current = tunables
         self.applied += 1
 
-    def _count_measure(self, t0: float, n: int = 1,
-                       batch: bool = False) -> None:
-        """Fold one measurement (``n`` candidates) ending now into the
-        counters; ``t0`` is its ``time.perf_counter()`` start."""
-        self.measure_seconds += time.perf_counter() - t0
-        self.measured += n
+    @staticmethod
+    def _trial(n: int = 1):
+        """The span of one measurement of ``n`` candidates, opened now
+        (``executor.trial``); ``_count_measure`` closes it."""
+        return T.span("executor.trial", candidates=n)
+
+    def _count_measure(self, trial, batch: bool = False) -> None:
+        """Close the ``trial`` span of one measurement and fold it into the
+        counters: ``measure_seconds`` is the sum of the trial spans."""
+        self.measure_seconds += trial.close()
+        self.measured += trial.attrs["candidates"]
         self.measured_batches += batch
 
     # -- durable-session state (see KermitSession.checkpoint) ---------------
@@ -160,21 +165,22 @@ class MeasureCounters:
         ``arrays_fn`` (struct-of-arrays encoding) when available, else loop
         ``scalar_fn``; counters updated either way."""
         candidates = list(candidates)
-        t0 = time.perf_counter()
+        trial = self._trial(len(candidates))
         if arrays_fn is not None:
             costs = np.asarray(arrays_fn(tunables_to_arrays(candidates)),
                                np.float64).reshape(-1).tolist()
         else:
             costs = [float(scalar_fn(c)) for c in candidates]
-        self._count_measure(t0, len(candidates), batch=True)
+        self._count_measure(trial, batch=True)
         return costs
 
     def _measure_batch_arrays_impl(self, arrays: dict,
                                    arrays_fn: Callable) -> np.ndarray:
         """Shared ``measure_batch_arrays`` body (one vectorized dispatch)."""
-        t0 = time.perf_counter()
+        trial = self._trial(0)
         costs = np.asarray(arrays_fn(arrays)).reshape(-1)
-        self._count_measure(t0, len(costs), batch=True)
+        trial.attrs["candidates"] = len(costs)
+        self._count_measure(trial, batch=True)
         return costs
 
 
@@ -206,9 +212,9 @@ class CallableExecutor(MeasureCounters):
         self._count_apply(tunables)
 
     def measure(self) -> float:
-        t0 = time.perf_counter()
+        trial = self._trial()
         cost = float(self._objective(self.current))
-        self._count_measure(t0)
+        self._count_measure(trial)
         return cost
 
     def measure_batch(self, candidates: Sequence[Tunables]) -> list:
@@ -307,9 +313,9 @@ class SimulatorExecutor(MeasureCounters):
         self._count_apply(tunables)
 
     def measure(self) -> float:
-        t0 = time.perf_counter()
+        trial = self._trial()
         cost = float(self._cost(self.current))
-        self._count_measure(t0)
+        self._count_measure(trial)
         return cost
 
     def measure_batch(self, candidates: Sequence[Tunables]) -> list:

@@ -15,7 +15,10 @@ once and caches its steps per configuration:
                    it and reports wall-clock timings (ending in
                    ``torch.cuda.synchronize()`` on the card, where the
                    reference blocks until ready) + per-request completion
-                   times
+                   times; the timings are the durations of its
+                   ``engine.prefill``/``engine.decode`` spans
+                   (``runtime/trace.py``), and while a profiler records,
+                   each decode step records its detail spans
 
 ``serve`` allocates the KV cache once, at ``capacity_for(...)`` positions
 in ``cache_dtype``; prefill writes its keys and values into it and decode
@@ -43,7 +46,6 @@ Serving-specific knobs (``configs/base.Tunables``):
 """
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -56,6 +58,7 @@ from repro_torch.configs.base import (DEFAULT_TUNABLES, ModelConfig,
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
+from repro_torch.runtime import trace as T
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
 
@@ -203,11 +206,13 @@ class ServeEngine:
 
     def serve(self, *, batch: int, prompt_len: int,
               gen: int | Sequence[int],
-              tunables: Optional[Tunables] = None) -> ServeReport:
+              tunables: Optional[Tunables] = None,
+              purpose: str = "serve") -> ServeReport:
         """Batched prefill + greedy decode.  ``gen`` is either one length
         for the whole batch or a per-request vector; the batch runs
         ``max(gen)`` steps and each request's completion time is attributed
-        at its own length."""
+        at its own length.  ``purpose`` labels the call's span (the
+        executor's ``warm`` and ``calibrate`` serves)."""
         tun = tunables if tunables is not None else self.tunables
         gen_vec = np.full(batch, int(gen), np.int64) \
             if np.isscalar(gen) else np.asarray(gen, np.int64)
@@ -216,35 +221,42 @@ class ServeEngine:
         steps = int(gen_vec.max())
         capacity = self.capacity_for(prompt_len, steps, tun)
 
-        prefill = self.prefill_step(tun)
-        decode = self.decode_step(tun)
-        b = self._token_batch(prompt_len, batch)
-        cache_dt = None if tun.cache_dtype == "auto" \
-            else getattr(torch, tun.cache_dtype)
+        with T.span("engine.serve", batch=batch, prompt=prompt_len,
+                    steps=steps, capacity=capacity, purpose=purpose) as call:
+            call.anchor()
+            prefill = self.prefill_step(tun)
+            decode = self.decode_step(tun)
+            b = self._token_batch(prompt_len, batch)
+            cache_dt = None if tun.cache_dtype == "auto" \
+                else getattr(torch, tun.cache_dtype)
 
-        t0 = time.perf_counter()
-        cache = self._serve_cache(batch, prompt_len, capacity, cache_dt)
-        logits, cache = prefill(self.params, b, cache)
-        self._sync()
-        prefill_s = time.perf_counter() - t0
+            with T.span("engine.prefill") as pf:
+                cache = self._serve_cache(batch, prompt_len, capacity,
+                                          cache_dt)
+                logits, cache = prefill(self.params, b, cache)
+                self._sync()
 
-        tokens = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-        out = [tokens]
-        t0 = time.perf_counter()
-        for i in range(steps):
-            step_batch = {"tokens": tokens, "pos": prompt_len + i}
-            logits, cache = decode(self.params, cache, step_batch)
             tokens = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-            out.append(tokens)
-        self._sync()
-        decode_s = time.perf_counter() - t0
+            out = [tokens]
+            with T.span("engine.decode", steps=steps) as dc, \
+                    T.detailed(T.profiling()):
+                for i in range(steps):
+                    with T.detail("engine.step"):
+                        step_batch = {"tokens": tokens, "pos": prompt_len + i}
+                        logits, cache = decode(self.params, cache, step_batch)
+                        with T.detail("engine.sample"):
+                            tokens = torch.argmax(logits[:, -1], -1)[
+                                :, None].to(torch.int32)
+                            out.append(tokens)
+                self._sync()
 
-        self.stats["serve_calls"] += 1
-        self.stats["decode_steps"] += steps
+            self.stats["serve_calls"] += 1
+            self.stats["decode_steps"] += steps
+            generated = torch.cat(out, 1).cpu().numpy()
         return ServeReport(
             batch=batch, prompt_len=prompt_len, gen=gen_vec,
-            capacity=capacity, prefill_s=prefill_s, decode_s=decode_s,
-            steps=steps, generated=torch.cat(out, 1).cpu().numpy())
+            capacity=capacity, prefill_s=pf.seconds, decode_s=dc.seconds,
+            steps=steps, generated=generated)
 
     def serve_legacy(self, batch: int, prompt_len: int, gen: int,
                      tun: Tunables) -> dict:

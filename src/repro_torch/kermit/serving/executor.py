@@ -32,7 +32,6 @@ that reconfigures the very system it observes.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -43,6 +42,7 @@ from repro_torch.core.windows import FEATURES, NUM_FEATURES
 from repro_torch.kermit.executor import MeasureCounters
 from repro_torch.kermit.serving.engine import ServeEngine, tiny_config
 from repro_torch.kermit.serving.traffic import RequestWindow, TrafficGenerator
+from repro_torch.runtime import trace as T
 from repro_torch.runtime.telemetry import percentile
 
 _IDX = {f: i for i, f in enumerate(FEATURES)}
@@ -142,9 +142,9 @@ class ServeExecutor(MeasureCounters):
         self.engine.apply(tunables)
 
     def measure(self) -> float:
-        t0 = time.perf_counter()
+        trial = self._trial()
         cost = self._probe_cost(self.current)
-        self._count_measure(t0)
+        self._count_measure(trial)
         return cost
 
     def measure_batch(self, candidates: Sequence[Tunables]) -> list:
@@ -159,28 +159,26 @@ class ServeExecutor(MeasureCounters):
         if self._unit is None:
             batch = max(int(tun.serve_batch), 1)
             prompt = int(win.prompt_len.max())
-            gen = int(win.gen.max())
-            self._serve_chunk(tun, batch, prompt,
-                              np.full(batch, gen, np.int64))  # warm
-            rep = self._serve_chunk(tun, batch, prompt,
-                                    np.full(batch, gen, np.int64))
+            gen = np.full(batch, int(win.gen.max()), np.int64)
+            self._serve_chunk(tun, batch, prompt, gen, "calibrate")  # warm
+            rep = self._serve_chunk(tun, batch, prompt, gen, "calibrate")
             self._unit = rep.total_s / batch
         return self._unit
 
     def _serve_chunk(self, tun: Tunables, batch: int, prompt: int,
-                     gen: np.ndarray):
+                     gen: np.ndarray, purpose: str = "serve"):
         """One engine call, warmed: the first use of a (config, shape)
-        combination runs once untimed, so one-off costs (the kernels'
-        build, the card's first launches, allocator growth) never pollute
-        a latency measurement."""
+        combination runs once untimed (``purpose`` "warm"), so one-off
+        costs (the kernels' build, the card's first launches, allocator
+        growth) never pollute a latency measurement."""
         cap = self.engine.capacity_for(prompt, int(gen.max()), tun)
         key = (tun, batch, prompt, cap)
         if key not in self._warm:
             self.engine.serve(batch=batch, prompt_len=prompt, gen=gen,
-                              tunables=tun)
+                              tunables=tun, purpose="warm")
             self._warm.add(key)
         return self.engine.serve(batch=batch, prompt_len=prompt, gen=gen,
-                                 tunables=tun)
+                                 tunables=tun, purpose=purpose)
 
     def _replay(self, win: RequestWindow, tun: Tunables) -> dict:
         """Serve one traffic window under ``tun`` for real and reconstruct
@@ -206,7 +204,9 @@ class ServeExecutor(MeasureCounters):
             gen = win.gen[idx]
             if pad:
                 gen = np.concatenate([gen, np.full(pad, gen.min())])
-            rep = self._serve_chunk(tun, batch, prompt, gen)
+            with T.span("executor.chunk", window=int(win.index),
+                        requests=idx.tolist(), real_rows=n):
+                rep = self._serve_chunk(tun, batch, prompt, gen)
             start = max(float(arrivals[idx[-1]]), t_free)
             t_free = start + rep.total_s
             latencies[idx] = start + rep.completion_s[:n] - arrivals[idx]
@@ -256,7 +256,8 @@ class ServeExecutor(MeasureCounters):
         """Serve one window under the *applied* configuration, log its
         latency profile, and return the (W, F) telemetry rows."""
         self._probe = win
-        stats = self._replay(win, self.current)
+        with T.span("executor.window", window=int(win.index)):
+            stats = self._replay(win, self.current)
         self.windows_served += 1
         self.window_log.append({
             "window": int(win.index), "phase": win.phase,

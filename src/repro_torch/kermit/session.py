@@ -49,6 +49,7 @@ from repro_torch.kermit.config import KermitConfig, resolve_impl
 from repro_torch.kermit.events import AutonomicEvent, EventKind
 from repro_torch.kermit.executor import Executor, ExecutorObjective
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.runtime import trace as T
 from repro_torch.runtime.checkpoint import load_snapshot, save_snapshot
 
 # -- durable-session snapshot schema ----------------------------------------
@@ -303,8 +304,9 @@ class KermitSession:
         committed mid-stream changes how every later batch is generated —
         the closed-loop shape for managed systems whose telemetry depends on
         the configuration the loop chooses."""
-        for samples in stream:
-            self.step_batch(np.asarray(samples, np.float32))
+        with T.span("session.run_live", dropped=T.dropped):
+            for samples in stream:
+                self.step_batch(np.asarray(samples, np.float32))
         return self.current
 
     def invalidate(self) -> None:

@@ -132,19 +132,19 @@ class RooflineExecutor(MeasureCounters):
         return (rl.compute_s, rl.memory_s, rl.collective_s)
 
     def measure(self) -> float:
-        t0 = time.perf_counter()
+        trial = self._trial()
         est = float(max(self._probe_one(self.current)))
-        self._count_measure(t0)
+        self._count_measure(trial)
         return est
 
     def measure_batch(self, candidates) -> list:
         candidates = list(candidates)
-        t0 = time.perf_counter()
+        trial = self._trial(len(candidates))
         # vectorized roofline reduction over the whole knob sweep
         terms = np.array([self._probe_one(c) for c in candidates],
                          np.float64).reshape(-1, 3)
         est = terms.max(axis=1)
-        self._count_measure(t0, len(candidates), batch=True)
+        self._count_measure(trial, batch=True)
         return [float(e) for e in est]
 
 

@@ -28,6 +28,7 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.transformer import _unstack, remat
+from repro_torch.runtime import trace as T
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -102,13 +103,18 @@ def forward_mamba(params, cfg, batch, tun, *, return_cache=False, cache=None):
 
 def decode_mamba(params, cfg, batch, cache, tun):
     """One-token decode; ``cache`` is updated IN PLACE and returned."""
-    x = params["embed"][batch["tokens"]]
-    layers = _unstack(params["layers"], cfg.n_layers)
+    with T.detail("model.embed"):
+        x = params["embed"][batch["tokens"]]
+    with T.detail("model.views"):
+        layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
-        st = _layer_state(cache, i)
-        x, new = _ssm_block_step(layers[i], x, cfg, st)
-        _write_state(st, new)
-    return _logits(params, cfg, x), cache
+        with T.detail("model.layer", index=i):
+            st = _layer_state(cache, i)
+            x, new = _ssm_block_step(layers[i], x, cfg, st)
+            _write_state(st, new)
+    with T.detail("model.head"):
+        logits = _logits(params, cfg, x)
+    return logits, cache
 
 
 def cache_mamba(cfg, batch: int, seq: int, dtype=None, device=None):

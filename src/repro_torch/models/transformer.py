@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.runtime import trace as T
 
 
 # 2-D matrix products: the counterpart of ``dots_with_no_batch_dims_saveable``
@@ -260,24 +261,31 @@ def decode_step(params, cfg, batch, cache, tun):
     cache: {"k": (L,B,S,K,hd), "v": ...} (+ "k0"/"v0"), updated IN PLACE
     at ``pos`` and returned.  Returns (logits, cache)."""
     pos = int(batch["pos"])
-    x = _embed_tokens(params, cfg, batch["tokens"])
-    dev = x.device
-    positions = torch.full((1,), pos, device=dev)
-    S = cache["k"].shape[2]
-    kv_pos = torch.arange(S, device=dev)
+    with T.detail("model.embed"):
+        x = _embed_tokens(params, cfg, batch["tokens"])
+        dev = x.device
+        positions = torch.full((1,), pos, device=dev)
+        S = cache["k"].shape[2]
+        kv_pos = torch.arange(S, device=dev)
     kv_len = pos + 1
     step = dict(positions=positions, kv_pos=kv_pos, kv_len=kv_len,
                 write_pos=pos)
-    if "layer0" in params:
-        x, _, _ = block_apply(params["layer0"], x, cfg, tun, window=None,
-                              kv=(cache["k0"], cache["v0"]), **step)
     n_scan = _n_scan(cfg)
-    wins = layer_windows(cfg, n_scan, device=dev).unbind(0)
-    layers = _unstack(params["layers"], n_scan)
+    first = cfg.n_layers - n_scan
+    if "layer0" in params:
+        with T.detail("model.layer", index=0):
+            x, _, _ = block_apply(params["layer0"], x, cfg, tun, window=None,
+                                  kv=(cache["k0"], cache["v0"]), **step)
+    with T.detail("model.views"):
+        wins = layer_windows(cfg, n_scan, device=dev).unbind(0)
+        layers = _unstack(params["layers"], n_scan)
     for i in range(n_scan):
-        x, _, _ = block_apply(layers[i], x, cfg, tun, window=wins[i],
-                              kv=(cache["k"][i], cache["v"][i]), **step)
-    return _head(params, cfg, x), cache
+        with T.detail("model.layer", index=first + i):
+            x, _, _ = block_apply(layers[i], x, cfg, tun, window=wins[i],
+                                  kv=(cache["k"][i], cache["v"][i]), **step)
+    with T.detail("model.head"):
+        logits = _head(params, cfg, x)
+    return logits, cache
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
