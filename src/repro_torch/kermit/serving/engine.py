@@ -42,6 +42,28 @@ Serving-specific knobs (``configs/base.Tunables``):
                  so over-allocated capacity is numerically free
   cache_dtype    KV storage precision ("auto" = model dtype)
 
+The decode graph: on the card, a call of the ``dense`` or ``ssm`` family
+that runs at least two decode steps replays its step from a CUDA graph,
+one launch a step where the eager step issues some 2,800 (a one-step
+call never replays what it would capture, so it runs eagerly, as every
+call on the CPU and of the other families does).  The graph is captured
+on the first such call of its key (``decode_graph_key``: the batch, the
+cache's shapes and dtype, and the Tunables fields the decode step reads)
+and kept, with its static buffers, for the engine's parameters: the
+serve cache, zeroed and filled by the prefill at the start of each call;
+the step's tokens and position, which the graph advances itself (the
+greedy tokens are taken inside it); the logits.  At most
+``_DECODE_GRAPHS_MAX`` keys are kept, least recently used first out; all
+share one memory pool and replay one after another on one stream.  No
+graph is captured while a profiler records: such a call without a graph
+runs eagerly.  A replayed decode records no detail spans: under a
+profiler each replay's launch takes milliseconds on the host, more or
+less from step to step, so a span around it would not say when the
+step ran on the device.  ``stats["decode_graph_captures"/
+"decode_graph_steps"]`` count the captures and the replayed steps; the
+``engine.decode`` span's ``graph`` says whether its steps were
+replayed, and ``engine.capture`` times each capture.
+
 ``device=None`` means CUDA, as for every entry point of the port.
 """
 from __future__ import annotations
@@ -58,8 +80,16 @@ from repro_torch.configs.base import (DEFAULT_TUNABLES, ModelConfig,
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import trace as T
 from repro_torch.train.step import make_prefill_step, make_serve_step
+
+# the families whose decode step is replayed from a CUDA graph, and the
+# Tunables fields that step reads (``models/transformer.py:decode_step``,
+# ``models/ssm_lm.py:decode_mamba``): the only ones in a graph's key
+_DECODE_READS = {"dense": ("attn_q_chunk",), "ssm": ()}
+# the most decode graphs, each with its static cache, an engine keeps
+_DECODE_GRAPHS_MAX = 16
 
 
 def tiny_config(arch: str, **kw) -> ModelConfig:
@@ -110,6 +140,39 @@ class ServeReport:
         return int(np.sum(self.gen)) + self.batch   # + first prefill token
 
 
+class _DecodeGraph:
+    """One greedy decode step captured as a CUDA graph over static
+    buffers: ``cache``, the step's input ``tokens`` (B, 1) int32 and
+    position ``pos`` (0-dim int64).  A replay runs the step at ``pos``,
+    writes its greedy tokens into ``tokens`` and advances ``pos``, so
+    replays follow one another with no input from the host."""
+
+    def __init__(self, params, decode, cache, batch: int, dev, pool):
+        self.cache = cache
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def step():
+            logits, _ = decode(params, cache,
+                               {"tokens": self.tokens, "pos": self.pos})
+            self.tokens.copy_(torch.argmax(logits[:, -1], -1)[
+                :, None].to(torch.int32))
+            self.pos.add_(1)
+            return logits
+        # one eager step on a side stream first, as capture asks (its
+        # writes land in the cache, which each call zeroes before its
+        # prefill)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.logits = step()
+
+
 class ServeEngine:
     """Holds params + cached prefill/decode steps for one model config.
 
@@ -128,8 +191,12 @@ class ServeEngine:
         self._prefill: dict = {}     # effective Tunables -> prefill step
         self._decode: dict = {}      # Tunables -> decode step
         self._batches: dict = {}     # (prompt_len, batch) -> token batch
+        self._graphs: OrderedDict = OrderedDict()  # graph key -> graph
+        self._graph_pool = None
+        self._graph_params: list = []  # the parameters the graphs read
         self.stats = {"prefill_builds": 0, "decode_builds": 0,
-                      "serve_calls": 0, "decode_steps": 0}
+                      "serve_calls": 0, "decode_steps": 0,
+                      "decode_graph_captures": 0, "decode_graph_steps": 0}
 
     def _generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.seed)
@@ -194,6 +261,57 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- decode graphs ------------------------------------------------------
+
+    def _graphed(self, steps: int) -> bool:
+        """Whether a call of ``steps`` decode steps replays a graph: on
+        the card, for a family in ``_DECODE_READS``, at two steps or
+        more."""
+        return (steps >= 2 and self.device.type == "cuda"
+                and self.cfg.family in _DECODE_READS)
+
+    def decode_graph_key(self, tun: Tunables, batch: int,
+                         capacity: int) -> tuple:
+        """What a captured decode step depends on besides the weights:
+        the shapes and dtypes of the serve cache it updates (they hold the
+        batch, and for the dense family the capacity; the SSM state has
+        none) and the Tunables fields its family's step reads, and
+        nothing else."""
+        cache = M.init_cache(self.cfg, batch, capacity,
+                             dtype=_cache_dtype(tun), device="meta")
+        return (tuple((tuple(t.shape), t.dtype) for t in tree_leaves(cache)),
+                tuple(getattr(tun, f) for f in _DECODE_READS[self.cfg.family]))
+
+    def _decode_graph(self, tun: Tunables, batch: int, prompt_len: int,
+                      capacity: int, decode) -> Optional[_DecodeGraph]:
+        """The graph of this call's key, captured now if the key has none
+        (but not while a profiler records: then None).  Graphs read the
+        parameters they were captured with, so new ones drop them all."""
+        leaves = tree_leaves(self.params)
+        if len(leaves) != len(self._graph_params) or any(
+                a is not b for a, b in zip(leaves, self._graph_params)):
+            self._graphs.clear()
+            self._graph_params = leaves
+        key = self.decode_graph_key(tun, batch, capacity)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph
+        if T.profiling():
+            return None
+        with T.span("engine.capture", batch=batch, capacity=capacity):
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            cache = self._serve_cache(batch, prompt_len, capacity,
+                                      _cache_dtype(tun))
+            graph = _DecodeGraph(self.params, decode, cache, batch,
+                                 self.device, self._graph_pool)
+        self._graphs[key] = graph
+        self.stats["decode_graph_captures"] += 1
+        while len(self._graphs) > _DECODE_GRAPHS_MAX:
+            self._graphs.popitem(last=False)
+        return graph
+
     # -- the serve path -----------------------------------------------------
 
     def capacity_for(self, prompt_len: int, max_gen: int,
@@ -227,32 +345,55 @@ class ServeEngine:
             prefill = self.prefill_step(tun)
             decode = self.decode_step(tun)
             b = self._token_batch(prompt_len, batch)
-            cache_dt = None if tun.cache_dtype == "auto" \
-                else getattr(torch, tun.cache_dtype)
+            graph = (self._decode_graph(tun, batch, prompt_len, capacity,
+                                        decode)
+                     if self._graphed(steps) else None)
 
             with T.span("engine.prefill") as pf:
-                cache = self._serve_cache(batch, prompt_len, capacity,
-                                          cache_dt)
+                if graph is None:
+                    cache = self._serve_cache(batch, prompt_len, capacity,
+                                              _cache_dtype(tun))
+                else:
+                    cache = graph.cache
+                    for t in tree_leaves(cache):
+                        t.zero_()
                 logits, cache = prefill(self.params, b, cache)
                 self._sync()
 
             tokens = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-            out = [tokens]
-            with T.span("engine.decode", steps=steps) as dc, \
-                    T.detailed(T.profiling()):
-                for i in range(steps):
-                    with T.detail("engine.step"):
-                        step_batch = {"tokens": tokens, "pos": prompt_len + i}
-                        logits, cache = decode(self.params, cache, step_batch)
-                        with T.detail("engine.sample"):
-                            tokens = torch.argmax(logits[:, -1], -1)[
-                                :, None].to(torch.int32)
-                            out.append(tokens)
-                self._sync()
+            with T.span("engine.decode", steps=steps,
+                        graph=graph is not None) as dc, \
+                    T.detailed(graph is None and T.profiling()):
+                if graph is None:
+                    out = [tokens]
+                    for i in range(steps):
+                        with T.detail("engine.step"):
+                            step_batch = {"tokens": tokens,
+                                          "pos": prompt_len + i}
+                            logits, cache = decode(self.params, cache,
+                                                   step_batch)
+                            with T.detail("engine.sample"):
+                                tokens = torch.argmax(logits[:, -1], -1)[
+                                    :, None].to(torch.int32)
+                                out.append(tokens)
+                    self._sync()
+                else:
+                    out = torch.empty((batch, 1 + steps), dtype=torch.int32,
+                                      device=self.device)
+                    out[:, :1] = tokens
+                    graph.tokens.copy_(tokens)
+                    graph.pos.fill_(prompt_len)
+                    for i in range(steps):
+                        graph.graph.replay()
+                        out[:, i + 1:i + 2] = graph.tokens
+                    self._sync()
+                    self.stats["decode_graph_steps"] += steps
 
             self.stats["serve_calls"] += 1
             self.stats["decode_steps"] += steps
-            generated = torch.cat(out, 1).cpu().numpy()
+            if graph is None:
+                out = torch.cat(out, 1)
+            generated = out.cpu().numpy()
         return ServeReport(
             batch=batch, prompt_len=prompt_len, gen=gen_vec,
             capacity=capacity, prefill_s=pf.seconds, decode_s=dc.seconds,
@@ -269,6 +410,12 @@ class ServeEngine:
             "decode_tok_per_s": batch * gen / rep.decode_s,
             "generated": rep.generated.tolist(),
         }
+
+
+def _cache_dtype(tun: Tunables):
+    """The KV cache's dtype under ``tun`` (None: the model's)."""
+    return None if tun.cache_dtype == "auto" else getattr(torch,
+                                                          tun.cache_dtype)
 
 
 # -- process-wide engine cache (the launcher's entry point) ------------------

@@ -15,9 +15,10 @@ Two levels:
            of the MAPE-K loop, recorded whenever ``enabled``
   detail   ``detail``: the insides of a decode step (embedding, per-step
            parameter views, each layer, the head, sampling), recorded
-           only inside ``detailed(True)``, which the engine enters for a
-           call made while a torch profiler records (``profiling()``):
-           only then can they be laid against device time
+           only inside ``detailed(True)``, which the engine enters for an
+           eager decode made while a torch profiler records
+           (``profiling()``): only then can they be laid against device
+           time (a replayed decode has no insides on the host)
 
 ``enabled = False`` records nothing, at either level.  A span still
 times its region then: the program's own timers
