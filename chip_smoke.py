@@ -62,7 +62,15 @@ raising (exit code != 0):
                        the full model in bf16 (printed); a profiled call
                        (prompt 48, 4 new tokens).
 12. ``serving_ssm``, ``serving_ssm_parity`` — the same loop, checks and
-                       profile on mamba2-1.3b (chunks of 16).
+                       profile on mamba2-1.3b (chunks of 16); besides,
+                       the fused decode step (``ssm_step``): its wrapper
+                       calls held to the eager decode steps (and each
+                       graph capture's two) x 48 layers, every layer of
+                       the first and last eager steps of each batch held
+                       to ``mamba2.mixer_step``, its launches in the
+                       profiled call's trace held to 4 steps x 48 layers,
+                       and its time at B = 2 and 8 (``kernel_ssm_step``)
+                       beside the plain step's and the state's bound.
 13. ``hybrid``       — zamba2-7b at full width behind ``ServeEngine``: a
                        few serve calls through both kernels, and a profiled
                        call.
@@ -238,12 +246,14 @@ from repro_torch.kernels import cuda_build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import pairdist as P  # noqa: E402
 from repro_torch.kernels import ssd_scan as SSD  # noqa: E402
+from repro_torch.kernels import ssm_step as SS  # noqa: E402
 from repro_torch.kermit import (AnalysisConfig, EventKind,  # noqa: E402
                                 FleetConfig, KermitConfig, KermitFleet,
                                 KermitSession, KnowledgeConfig,
                                 MonitorConfig, PlanConfig, ServeConfig,
                                 ServeEngine, ServeExecutor, SimulatorExecutor,
                                 TrafficGenerator, run_serving_session)
+from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm_lm as SLM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -283,6 +293,9 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
 SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:30"
+SSM_STEP_SRC = "src/repro_torch/kernels/csrc/ssm_step.cu"
+SSM_STEP_REPLACES = ("none: the reference decodes through plain XLA ops "
+                     "(src/repro/models/mamba2.py:169, mamba2_step)")
 DENSE_SRC = "src/repro_torch/kernels/csrc/pairdist.cu"
 DENSE_REPLACES = "src/repro/kernels/pairdist.py:55"
 # |kernel − plain| <= DENSE_RTOL·(|x_i|² + |x_j|²) + DENSE_ATOL: the two sum
@@ -429,7 +442,7 @@ SASS_MIX = ("FFMA", "FADD", "FMUL", "FSET", "FSETP", "SEL", "LOP3", "LDS",
 
 
 def phase_build() -> None:
-    """Build the four kernels, one nvcc each, started together; print
+    """Build the five kernel sources, one nvcc each, started together; print
     ptxas's registers, shared memory and spills per instantiation, and
     the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in each
     kernel's SASS, or their PTX names where the toolkit has no cuobjdump;
@@ -437,7 +450,7 @@ def phase_build() -> None:
     instruction mix of the two CUDA-core pair kernels (``SASS_MIX``)."""
     t0 = time.perf_counter()
     cuda_build.build("nbr_adjacency", "flash_attention", "ssd_scan",
-                     "pairdist")
+                     "pairdist", "ssm_step")
     seconds = time.perf_counter() - t0
     ptxas = {}
     for name, log in cuda_build.BUILD_LOGS.items():
@@ -592,6 +605,11 @@ TRACE_NAMES = {"nbr_adjacency": "nbr_adjacency_kernel",
                "flash_attention/float32": "flash_fwd_kernel",
                "ssd_scan/bfloat16": "ssd_fwd_mma",
                "ssd_scan/float32": "ssd_fwd_kernel"}
+# not in TRACE_NAMES: a decode replayed from a CUDA graph launches the
+# fused SSM step without calling its wrapper, so its counter cannot be
+# held to a trace; its launches are read from the trace by name
+# (``profile_serve``)
+SSM_STEP_NAMES = {"ssm_step": "ssm_decode_step", "ssm_norm": "ssm_decode_norm"}
 # seconds of idle the profiler's steps put around ``fn``: after the warm-up
 # step's op and after ``fn``
 PROFILER_PAD_S = 0.05
@@ -1405,6 +1423,75 @@ def phase_kernel_ssd(dev) -> dict:
     return timed
 
 
+def ssm_step_inputs(dev, B: int, dtype=torch.bfloat16, seed: int = 0):
+    """The fused SSM step's arguments at mamba2-1.3b's widths (one
+    mixer's parameters, a random state, conv rows and in_proj row) and
+    its eps."""
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = M2.mamba2_init(gen, cfg, dtype)
+    st = M2.mamba2_init_state(cfg, B, dtype, device=dev)
+    st["ssm"].normal_(generator=gen)
+    st["conv"].copy_(torch.randn(st["conv"].shape, generator=gen,
+                                 device=dev))
+    zx = torch.randn((B, p["in_proj"].shape[1]), generator=gen,
+                     device=dev).to(dtype)
+    return (zx, st["conv"], st["ssm"], p["conv_w"], p["conv_b"],
+            p["dt_bias"], p["A_log"], p["D_skip"], p["norm"]), cfg.norm_eps
+
+
+def time_ssm_step(dev, B: int) -> dict:
+    """The fused SSM step at mamba2-1.3b's widths, bf16, batch ``B``: its
+    time, the plain step's (``models/mamba2.mixer_step``) and its parity;
+    ``bound_ms``: the fp32 state read once and written once at the HBM
+    peak (2·B·H·N·P·4 bytes)."""
+    args, eps = ssm_step_inputs(dev, B)
+    H, P, N = MAMBA2["H"], MAMBA2["P"], MAMBA2["N"]
+    bytes_ = 2 * B * H * N * P * 4
+    return {"B": B, "ms": time_ms(lambda: SS.ssm_step(*args, eps=eps), 200),
+            "plain_ms": time_ms(lambda: M2.mixer_step(*args, eps=eps), 50),
+            "device_ms": device_ms_per_call(
+                lambda: SS.ssm_step(*args, eps=eps),
+                f"ssm_step B={B} mamba2-1.3b bf16 x20",
+                tuple(SSM_STEP_NAMES.values())),
+            "bound_ms": bytes_ / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "bytes": bytes_, "max_abs_err": compare_ssm_step(*args, eps=eps)}
+
+
+def ssm_step_record(served_ssm: dict, hybrid: dict, profiled: dict,
+                    timed: dict) -> dict:
+    """The fused SSM step's entry of the kernels line: its launches on
+    the main path (wrapper calls of the serving and hybrid phases; a
+    replayed decode graph calls no wrapper, so the profiled serve call's
+    trace is counted by name too), the parity of its recorded inputs, and
+    its times at mamba2-1.3b's widths (``timed``: batch -> record)."""
+    by_phase = {"serving_ssm": served_ssm["launches"]["ssm_step"],
+                "hybrid": hybrid["launches"]["ssm_step"]}
+    parity = served_ssm["parity"]["ssm_step"]
+    main = timed[MAIN_SHAPE[0]]
+    return {
+        "name": "ssm_step", "route": "cuda", "source": SSM_STEP_SRC,
+        "replaces": SSM_STEP_REPLACES, "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
+        "launches_in_profiled_serve": profiled["launches"],
+        "profiled_trace_complete": profiled["profile"]["trace_complete"],
+        "max_abs_err": max(parity),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "library": "none: no single PyTorch call "
+        "computes the fused decode step", "library_device_ms": None,
+        "shape": {"B": MAIN_SHAPE[0], **MAMBA2, "K": 4, "dtype": "bf16"},
+        "device_ms": main["device_ms"],
+        "device_ms_in_serve": {k: profiled[k] for k in SSM_STEP_NAMES},
+        "timed": {f"B{b}": summary(rec) for b, rec in sorted(timed.items())},
+        "parity": {"main_path_inputs": len(parity),
+                   "timed_max_abs_err": max(r["max_abs_err"]
+                                            for r in timed.values())},
+        "tolerance": "|kernel - plain| <= 1e-3 + 2^-7·|plain| in bf16, "
+                     "1e-5 + 1e-5·|plain| in fp32, for the output, the state "
+                     "and the conv rows"}
+
+
 # ---------------------------------------------------------------------------
 # serving: KERMIT tuning a live qwen2-1.5b server
 # ---------------------------------------------------------------------------
@@ -1483,13 +1570,45 @@ def ssd_key(a, kw) -> tuple:
     return (tuple(a[0].shape), tuple(a[3].shape), a[0].dtype, kw["chunk"])
 
 
+def ssm_step_key(a, kw) -> tuple:
+    return (tuple(a[0].shape), tuple(a[2].shape), a[0].dtype)
+
+
+# |kernel - plain| <= atol + rtol·|plain| for the fused SSM step's output,
+# state and conv rows (tests/test_torch_ssm_step_cuda.py): bf16 at the
+# repo's bf16 kernel tolerance, fp32 where only the order of sums differs
+SSM_STEP_TOL = {torch.bfloat16: (2 ** -7, 1e-3), torch.float32: (1e-5, 1e-5)}
+
+
+def compare_ssm_step(zx, conv, ssm, *rest, eps) -> float:
+    """The fused step on copies of ``conv`` and ``ssm`` (it updates them
+    in place) against ``models/mamba2.mixer_step`` on the originals."""
+    c, st = conv.clone(), ssm.clone()
+    y = SS.ssm_step(zx, c, st, *rest, eps=eps)
+    wy, new = M2.mixer_step(zx, conv, ssm, *rest, eps=eps)
+    torch.cuda.synchronize()
+    rtol, atol = SSM_STEP_TOL[zx.dtype]
+    pairs = ((y, wy), (st, new["ssm"]), (c, new["conv"]))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    if not all(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol)
+               for a, b in pairs):
+        raise AssertionError(f"SSM step kernel differs from plain by {err} "
+                             f"(zxbcdt {tuple(zx.shape)}, state "
+                             f"{tuple(ssm.shape)}, {zx.dtype})")
+    return err
+
+
 # kernel name -> (module, wrapper, key of a launch's inputs, comparison)
 KERNELS = {
     "flash_attention": (FA, "_flash_fwd_cuda", flash_key,
                         lambda a, kw: compare_flash(*a[:3], **kw)),
     "ssd_scan": (SSD, "_ssd_fwd_cuda", ssd_key,
                  lambda a, kw: compare_ssd(*a, **kw)),
+    "ssm_step": (SS, "ssm_step", ssm_step_key,
+                 lambda a, kw: compare_ssm_step(*a, **kw)),
 }
+# the arguments a kernel's wrapper updates in place: recorded as copies
+IN_PLACE = {"ssm_step": (1, 2)}
 
 
 @contextlib.contextmanager
@@ -1498,14 +1617,20 @@ def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
     ``name`` for every distinct (shape, dtype, options) — one prefill's
     layers — and of the last ``last.maxlen`` launches: references only,
     detached (the path makes new inputs for every layer and does not
-    modify them)."""
+    modify them), but copies of what the wrapper updates in place
+    (``IN_PLACE``).  Launches inside a CUDA graph's capture are not
+    recorded: their inputs are the graph's static buffers."""
     module, attr, key, _ = KERNELS[name]
     real = getattr(module, attr)
+    copied = IN_PLACE.get(name, ())
 
     def run(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(*a, **kw)
         # detached: a training step's inputs would hold its autograd graph
-        rec = (tuple(t.detach() if isinstance(t, torch.Tensor) else t
-                     for t in a), kw)
+        rec = (tuple(t.detach().clone() if i in copied else
+                     t.detach() if isinstance(t, torch.Tensor) else t
+                     for i, t in enumerate(a)), kw)
         recs = first.setdefault(key(a, kw), [])
         if len(recs) < n:
             recs.append(rec)
@@ -1520,6 +1645,7 @@ def launch_inputs(name: str, first: dict, last: collections.deque, n: int):
 
 def reset_counters() -> None:
     P.LAUNCHES = P.DENSE_LAUNCHES = FA.LAUNCHES = SSD.LAUNCHES = 0
+    SS.LAUNCHES = 0
     FA.LAUNCHES_BY_DTYPE = dict.fromkeys(FA.LAUNCHES_BY_DTYPE, 0)
     SSD.LAUNCHES_BY_DTYPE = dict.fromkeys(SSD.LAUNCHES_BY_DTYPE, 0)
 
@@ -1527,6 +1653,7 @@ def reset_counters() -> None:
 def counters() -> dict:
     return {"nbr_adjacency": P.LAUNCHES, "flash_attention": FA.LAUNCHES,
             "ssd_scan": SSD.LAUNCHES, "pairdist": P.DENSE_LAUNCHES,
+            "ssm_step": SS.LAUNCHES,
             "by_dtype": {"flash_attention": dict(FA.LAUNCHES_BY_DTYPE),
                          "ssd_scan": dict(SSD.LAUNCHES_BY_DTYPE)}}
 
@@ -1549,12 +1676,16 @@ def check_recorded(phase: str, name: str, recorded: list) -> list:
 
 
 def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
-                  per_call: dict):
+                  per_call: dict, per_step: dict | None = None):
     """KERMIT tuning a live server of ``cfg`` at full width (bf16, random
     weights from seed 0): diurnal night -> day traffic through
     ``KermitSession`` + ``ServeExecutor``, with the asserts of
     tests/test_serving_autonomic.py.  ``per_call``: launches of each
-    kernel per serve call (its layers that run it once per prefill)."""
+    kernel per serve call (its layers that run it once per prefill);
+    ``per_step``: wrapper calls of each kernel per eager decode step (its
+    layers).  A decode graph's capture runs the step twice, eagerly on a
+    side stream and captured; its replays call no wrapper."""
+    per_step = per_step or {}
     eng, init = new_engine(cfg, initial, dev)
     traffic = TrafficGenerator.diurnal(window_size=8, seed=0,
                                        night_windows=SERVE_NIGHT,
@@ -1562,7 +1693,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     ex = ServeExecutor(eng, traffic, config=ServeConfig(probe_repeats=3),
                        initial=initial)
     events, seen, reports = [], [], []
-    on_path = {k: n for k, n in per_call.items() if n}
+    on_path = {k: n for k, n in {**per_call, **per_step}.items() if n}
     first = {k: {} for k in on_path}
     last = {k: collections.deque(maxlen=n) for k, n in on_path.items()}
     calls0 = eng.stats["serve_calls"]
@@ -1577,6 +1708,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
             serve_config(initial, space), executor=ex, device=dev))
         session.subscribe(None, events.append)
         reset_counters()
+        stats0 = dict(eng.stats)
         t0 = time.perf_counter()
         final = run_serving_session(session, ex)
         torch.cuda.synchronize()
@@ -1599,6 +1731,11 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     for name in ("flash_attention", "ssd_scan"):
         assert launches[name] == per_call.get(name, 0) * calls, (
             name, launches[name], calls)
+    grown = {k: eng.stats[k] - stats0[k] for k in stats0}
+    eager = grown["decode_steps"] - grown["decode_graph_steps"]
+    for name, n in per_step.items():
+        assert launches[name] == n * (eager + 2 * grown[
+            "decode_graph_captures"]), (name, launches[name], grown)
     assert_tensor_core_route(launches)
     nbr_launches = launches["nbr_adjacency"]
     assert nbr_launches == analyses == len(seen) > 0, (nbr_launches, analyses)
@@ -1623,7 +1760,7 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
     emit(phase, model=cfg.name, **init, seconds=seconds,
          windows=len(wl), serve_calls=calls, decode_steps=sum(
              r.steps for r in reports), analyses=analyses,
-         kernel_launches=launches,
+         kernel_launches=launches, engine_stats=grown,
          retunes=[(e.window_id, e.tunables["serve_batch"]) for e in events
                   if e.kind == EventKind.RETUNE.value],
          # what each decision saw: the session's events but transitions,
@@ -1645,15 +1782,22 @@ def phase_serving(dev, phase: str, cfg, initial: Tunables, space: dict,
              for (b, s), rs in sorted(by_shape.items())})
 
     # every layer of the first prefill of each shape the path ran, and of
-    # the last prefill
+    # the last prefill; of a decode kernel, every layer of the first eager
+    # step of each batch that decoded, and of the last eager step
     shapes = sorted({(r.batch, r.prompt_len) for r in reports})
+    batches = sorted({r.batch for r in reports if r.steps})
     parity = {}
     for name, n in on_path.items():
         recorded = [r for recs in first[name].values() for r in recs] + \
             list(last[name])
         assert all(len(recs) == n for recs in first[name].values())
-        compared = sorted({tuple(a[0].shape[:2]) for a, _ in recorded})
-        assert compared == shapes, (name, compared, shapes)
+        if name in per_step:
+            compared, want = sorted({a[0].shape[0] for a, _ in recorded}), \
+                batches
+        else:
+            compared = sorted({tuple(a[0].shape[:2]) for a, _ in recorded})
+            want = shapes
+        assert compared == want, (name, compared, want)
         parity[name] = check_recorded(phase, name, recorded)
     nbr = check_main_path(phase, seen, dev)
     return eng, {"launches": launches, "parity": parity, "nbr_parity": nbr}
@@ -1700,17 +1844,21 @@ def profile_serve(eng, initial: Tunables, kernel_names: dict,
     """One serve call (a day-phase prefill, B = 8 and prompt 48, unless
     ``shape`` says otherwise; ``gen`` new tokens) under the profiler;
     ``kernel_names``: result key -> substring of a kernel's name, whose
-    per-launch device ms are returned."""
+    per-launch device ms are returned, and under ``"launches"`` how many
+    launches of each the trace shows."""
     B, S = shape
     per_kernel = {}
     prof = device_profile(lambda: eng.serve(batch=B, prompt_len=S, gen=gen,
                                             tunables=initial), per_kernel)
     dev_ms = {key: [t / n for name, (n, t) in per_kernel.items()
                     if sub in name] for key, sub in kernel_names.items()}
+    seen = {key: sum(n for name, (n, _) in per_kernel.items() if sub in name)
+            for key, sub in kernel_names.items()}
     emit("profile", what=f"serve call B={B} prompt={S} gen={gen} "
          f"({eng.cfg.name}, bf16, {initial.attn_impl})",
-         **{f"{k}_ms": v for k, v in dev_ms.items()}, **prof)
-    return {**dev_ms, "profile": prof}
+         **{f"{k}_ms": v for k, v in dev_ms.items()},
+         **{f"{k}_launches": n for k, n in seen.items()}, **prof)
+    return {**dev_ms, "launches": seen, "profile": prof}
 
 
 def launches_per_decode_step(eng, initial: Tunables, kernel_names: dict,
@@ -3222,11 +3370,22 @@ def main() -> int:
     mamba2 = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
     eng, served_ssm = phase_serving(dev, "serving_ssm", mamba2, SSM_INITIAL,
-                                    SSM_SPACE, {"ssd_scan": mamba2.n_layers})
+                                    SSM_SPACE, {"ssd_scan": mamba2.n_layers},
+                                    {"ssm_step": mamba2.n_layers})
     emit("phase_seconds", of="serving_ssm", seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_serving_parity(dev, eng, "serving_ssm_parity", SSM_INITIAL)
-    ssd_dev = profile_serve(eng, SSM_INITIAL, {"ssd": "ssd_fwd_mma"})["ssd"]
+    profiled_ssm = profile_serve(eng, SSM_INITIAL,
+                                 {"ssd": "ssd_fwd_mma", **SSM_STEP_NAMES})
+    ssd_dev = profiled_ssm["ssd"]
+    # every SSD layer of every decode step ran the fused step, replayed or
+    # not (a trace that lost records is not held to it)
+    if profiled_ssm["profile"]["trace_complete"]:
+        assert all(profiled_ssm["launches"][k] == PROFILE_GEN
+                   * mamba2.n_layers for k in SSM_STEP_NAMES), \
+            profiled_ssm["launches"]
+    timed_step = {B: time_ssm_step(dev, B) for B in (2, MAIN_SHAPE[0])}
+    emit("kernel_ssm_step", timed={b: r for b, r in timed_step.items()})
     emit("phase_seconds", of="serving_ssm_parity+profile",
          seconds=time.perf_counter() - t0)
     del eng
@@ -3431,7 +3590,8 @@ def main() -> int:
                   for (name, b, s_), rec in timed_ssd.items()},
         "parity": {"main_path_inputs": len(ssd_parity)},
         "tolerance": "|kernel - plain| <= 1e-4 + 1e-4·|plain| for y and the "
-                     "state (fp32 outputs, bf16 or fp32 inputs)"}, {
+                     "state (fp32 outputs, bf16 or fp32 inputs)"},
+        ssm_step_record(served_ssm, hybrid, profiled_ssm, timed_step), {
         "name": "pairdist", "route": "cuda", "source": DENSE_SRC,
         "replaces": DENSE_REPLACES, "launches": qleg_launches + hleg_launches,
         "launches_by_phase": {"quickstart_legacy": qleg_launches,

@@ -84,10 +84,12 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import trace as T
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
-# the families whose decode step is replayed from a CUDA graph, and the
-# Tunables fields that step reads (``models/transformer.py:decode_step``,
-# ``models/ssm_lm.py:decode_mamba``): the only ones in a graph's key
-_DECODE_READS = {"dense": ("attn_q_chunk",), "ssm": ()}
+# the families whose decode step is replayed from a CUDA graph, and what
+# that step reads of the Tunables (``models/transformer.py:decode_step``,
+# ``models/ssm_lm.py:decode_mamba``, which runs the fused step kernel on
+# "pallas" alone): the only part of them in a graph's key
+_DECODE_READS = {"dense": lambda tun: (tun.attn_q_chunk,),
+                 "ssm": lambda tun: (tun.attn_impl == "pallas",)}
 # the most decode graphs, each with its static cache, an engine keeps
 _DECODE_GRAPHS_MAX = 16
 
@@ -275,12 +277,12 @@ class ServeEngine:
         """What a captured decode step depends on besides the weights:
         the shapes and dtypes of the serve cache it updates (they hold the
         batch, and for the dense family the capacity; the SSM state has
-        none) and the Tunables fields its family's step reads, and
+        none) and what its family's step reads of the Tunables, and
         nothing else."""
         cache = M.init_cache(self.cfg, batch, capacity,
                              dtype=_cache_dtype(tun), device="meta")
         return (tuple((tuple(t.shape), t.dtype) for t in tree_leaves(cache)),
-                tuple(getattr(tun, f) for f in _DECODE_READS[self.cfg.family]))
+                _DECODE_READS[self.cfg.family](tun))
 
     def _decode_graph(self, tun: Tunables, batch: int, prompt_len: int,
                       capacity: int, decode) -> Optional[_DecodeGraph]:

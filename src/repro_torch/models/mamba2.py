@@ -6,7 +6,10 @@ as a Python loop over chunks, where the reference scans); decode uses the
 O(1) recurrent state update.  ``impl="pallas"`` routes the chunk
 computation to ``kernels/ssd_scan.py`` (the hand-written CUDA kernel on a
 CUDA tensor, its plain version on the CPU); ``ssd_chunked`` here is the
-XLA route and the kernel's oracle.
+XLA route and the kernel's oracle.  In decode, ``impl="pallas"`` on CUDA
+tensors routes the mixer between its two projections to
+``kernels/ssm_step.py`` (a fused CUDA kernel pair that updates the cache
+in place); ``mixer_step`` here is its oracle and every other route.
 
 Both routes return the mixer's output in the input's dtype: the kernel's
 fp32 ``y`` is cast to ``x.dtype`` where ``ssd_chunked`` casts
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as K
+from repro_torch.kernels import ssm_step as SS
 from repro_torch.models import layers as L
 
 
@@ -193,30 +197,49 @@ def mamba2_apply(p, x, cfg, *, chunk: int | None = None, impl: str = "xla"):
     return y @ p["out_proj"], {"ssm": S_last, "conv": conv_tail}
 
 
-def mamba2_step(p, x, cfg, state):
+def mamba2_step(p, x, cfg, state, *, impl: str = "xla"):
     """Decode path. x: (B,1,D); state: {"ssm": (B,H,N,P), "conv":
-    (B,k-1,Cd)}.  Returns (out (B,1,D), new state)."""
-    s = cfg.ssm
-    B = x.shape[0]
-    d_inner, H, conv_dim = _dims(cfg)
-    G, N, P = s.n_groups, s.d_state, s.head_dim
+    (B,k-1,Cd)}.  Returns (out (B,1,D), new state).  With
+    ``impl="pallas"`` on CUDA tensors the fused kernel
+    (``kernels/ssm_step.py``) updates ``state``'s tensors in place and
+    ``state`` itself is returned; it raises on inputs it does not take.
+    Any other ``impl``, and any CPU tensor, runs ``mixer_step``, which
+    returns new tensors."""
+    zxbcdt = (x @ p["in_proj"])[:, 0]
+    args = (zxbcdt, state["conv"], state["ssm"], p["conv_w"], p["conv_b"],
+            p["dt_bias"], p["A_log"], p["D_skip"], p["norm"])
+    if impl == "pallas" and zxbcdt.is_cuda:
+        y, new = SS.ssm_step(*args, eps=cfg.norm_eps), state
+    else:
+        y, new = mixer_step(*args, eps=cfg.norm_eps)
+    return y[:, None] @ p["out_proj"], new
 
-    z, xBC, dt = _split_proj((x @ p["in_proj"])[:, 0], cfg)
-    hist = torch.cat([state["conv"], xBC[:, None, :].to(state["conv"].dtype)],
-                     dim=1)                                  # (B,k,Cd)
-    w = p["conv_w"][:, 0, :]                                 # (k,Cd)
-    xBC = _silu(torch.einsum("bkc,kc->bc", hist, w) + p["conv_b"])
+
+def mixer_step(zxbcdt, conv, ssm, conv_w, conv_b, dt_bias, A_log, D_skip,
+               norm, *, eps: float):
+    """The plain decode step of one mixer between its two projections,
+    with the arguments of ``kernels/ssm_step.ssm_step`` and its oracle:
+    zxbcdt (B, 2 d_inner + 2 G N + H), conv (B, k-1, Cd), ssm (B, H, N, P).
+    Returns (the normalised gated output (B, d_inner) in zxbcdt's dtype,
+    {"ssm", "conv"} new tensors)."""
+    B, H, N, P = ssm.shape
+    d_inner = H * P
+    G = (conv.shape[2] - d_inner) // (2 * N)
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, conv.shape[2], H], dim=-1)
+    hist = torch.cat([conv, xBC[:, None, :].to(conv.dtype)], dim=1)  # (B,k,Cd)
+    w = conv_w[:, 0, :]                                      # (k,Cd)
+    xBC = _silu(torch.einsum("bkc,kc->bc", hist, w) + conv_b)
     new_conv = hist[:, 1:]
 
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    new_ssm, y = ssd_step(state["ssm"], xs.reshape(B, H, P), dt, A,
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)
+    A = -torch.exp(A_log)
+    new_ssm, y = ssd_step(ssm, xs.reshape(B, H, P), dt, A,
                           Bm.reshape(B, G, N), Cm.reshape(B, G, N))
-    y = y + p["D_skip"][:, None] * xs.reshape(B, H, P).to(torch.float32)
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
-    y = L.rmsnorm(y * _silu(z[:, None]), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"ssm": new_ssm, "conv": new_conv}
+    y = y + D_skip[:, None] * xs.reshape(B, H, P).to(torch.float32)
+    y = y.reshape(B, d_inner).to(zxbcdt.dtype)
+    y = L.rmsnorm(y * _silu(z), norm, eps)
+    return y, {"ssm": new_ssm, "conv": new_conv}
 
 
 def mamba2_init_state(cfg, batch: int, dtype, device=None, lead=()):

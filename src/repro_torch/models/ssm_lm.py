@@ -18,7 +18,10 @@ Caches (``cache_mamba``/``cache_zamba``): the SSM state of every layer in
 fp32, the last ``d_conv - 1`` pre-conv rows in the model dtype, and for
 Zamba2 the shared block's keys and values per group, (G, B, S, K, hd), in
 the cache dtype.  Prefill writes into a given cache in place; decode
-updates it in place and returns it.
+updates it in place and returns it.  On the ``attn_impl="pallas"`` route
+an SSD layer's decode step on the card runs the fused kernel of
+``kernels/ssm_step.py``; it writes the layer's cache views itself, so
+nothing is copied back.
 """
 from __future__ import annotations
 
@@ -49,10 +52,20 @@ def _ssm_block(p_l, x, cfg, tun):
     return x + h, st
 
 
-def _ssm_block_step(p_l, x, cfg, state):
+def _ssm_block_step(p_l, x, cfg, state, impl):
     h, st = M2.mamba2_step(p_l["mixer"], L.rmsnorm(x, p_l["ln"], cfg.norm_eps),
-                           cfg, state)
+                           cfg, state, impl=impl)
     return x + h, st
+
+
+def _step_into(p_l, x, cfg, st, tun):
+    """One SSD layer's decode step against its cache views ``st``, which
+    end up holding the new state: the kernel route updates them in place,
+    the plain step's new tensors are copied into them."""
+    x, new = _ssm_block_step(p_l, x, cfg, st, tun.attn_impl)
+    if new is not st:
+        _write_state(st, new)
+    return x
 
 
 def _logits(params, cfg, x):
@@ -109,9 +122,7 @@ def decode_mamba(params, cfg, batch, cache, tun):
         layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
         with T.detail("model.layer", index=i):
-            st = _layer_state(cache, i)
-            x, new = _ssm_block_step(layers[i], x, cfg, st)
-            _write_state(st, new)
+            x = _step_into(layers[i], x, cfg, _layer_state(cache, i), tun)
     with T.detail("model.head"):
         logits = _logits(params, cfg, x)
     return logits, cache
@@ -266,13 +277,10 @@ def decode_zamba(params, cfg, batch, cache, tun):
                              kv=(cache["k"][g], cache["v"][g]), kv_pos=kv_pos,
                              write_pos=pos, kv_len=pos + 1)
         for i, p_l in enumerate(layers):
-            st = _layer_state(cache["g_ssm"], g, i)
-            x, new = _ssm_block_step(p_l, x, cfg, st)
-            _write_state(st, new)
+            x = _step_into(p_l, x, cfg, _layer_state(cache["g_ssm"], g, i),
+                           tun)
     for i, p_l in enumerate(rest):
-        st = _layer_state(cache["r_ssm"], i)
-        x, new = _ssm_block_step(p_l, x, cfg, st)
-        _write_state(st, new)
+        x = _step_into(p_l, x, cfg, _layer_state(cache["r_ssm"], i), tun)
     return _logits(params, cfg, x), cache
 
 

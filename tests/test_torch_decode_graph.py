@@ -90,6 +90,20 @@ def test_ssm_graph_key_has_no_capacity():
     assert eng.decode_graph_key(TUN, 8, 64) != key
 
 
+def test_ssm_graph_key_splits_on_attn_impl():
+    # the ssm step reads attn_impl == "pallas" (the fused step kernel) and
+    # nothing else of it: the other values share the plain step's graph
+    eng = ServeEngine(tiny_config("mamba2-1.3b"), device="cpu")
+    key = eng.decode_graph_key(TUN, 2, 64)
+    pallas = eng.decode_graph_key(TUN.replace(attn_impl="pallas"), 2, 64)
+    assert pallas != key
+    assert eng.decode_graph_key(TUN.replace(attn_impl="pallas",
+                                            ssm_chunk=16), 2, 4160) == pallas
+    for impl in ("auto", "fast", "xla"):
+        assert eng.decode_graph_key(TUN.replace(attn_impl=impl), 2, 64) \
+            == key, impl
+
+
 @pytest.mark.parametrize("arch,graphed", [
     ("qwen2-1.5b", True), ("mamba2-1.3b", True),
     ("deepseek-moe-16b", False), ("zamba2-7b", False),

@@ -291,7 +291,8 @@ def test_lower_cell_records(arch, shape, multi_pod):
 
 
 @pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan",
-                                    "pairdist", "nbr_adjacency"])
+                                    "pairdist", "nbr_adjacency",
+                                    "ssm_step"])
 def test_kernel_wrappers_refuse_fake_cuda_tensors(kernel):
     """A fake tensor's data pointer is 0: each CUDA wrapper raises before
     it builds or launches anything."""
@@ -300,6 +301,7 @@ def test_kernel_wrappers_refuse_fake_cuda_tensors(kernel):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import pairdist as P
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssm_step as SS
 
     def fake(*shape):
         return torch.empty(shape, device="cuda", dtype=torch.float32)
@@ -313,5 +315,10 @@ def test_kernel_wrappers_refuse_fake_cuda_tensors(kernel):
                               chunk=32)
         elif kernel == "pairdist":
             P._pairdist_cuda(fake(64, 8))
+        elif kernel == "ssm_step":
+            # one mixer of H 2, P 16, G 1, N 16, K 4: d_inner 32, Cd 64
+            SS.ssm_step(fake(1, 98), fake(1, 3, 64), fake(1, 2, 16, 16),
+                         fake(4, 1, 64), fake(64), fake(2), fake(2), fake(2),
+                         fake(32), eps=1e-5)
         else:
             P._neighbor_adjacency_cuda(fake(64, 8), eps_sq=1.0, block=128)
