@@ -346,7 +346,7 @@ class Explorer:
     def model_ranked_exhaustive(self, objective, start: Tunables,
                                 predict_fn, *, max_evals: int,
                                 refine: bool = True) -> SearchResult:
-        """Model-guided budgeted grid search (ROADMAP item 4).
+        """Model-guided budgeted grid search (``core/costmodel.py``).
 
         Rank phase: ``predict_fn`` (a trained ``CostModel.predict_arrays``)
         prices the WHOLE grid as struct-of-arrays chunks — model inference

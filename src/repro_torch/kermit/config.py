@@ -106,7 +106,7 @@ class PlanConfig:
     warm_start: bool = True          # seed searches from nearest stored config
     max_staleness_windows: int = 256  # pull-path staleness guard (windows)
     default_tunables: Optional[dict] = None  # J^D override; None -> defaults
-    # model-based Plan (core/costmodel.py — ROADMAP item 4).  All defaults
+    # model-based Plan (core/costmodel.py).  All defaults
     # keep the learned path OFF: model_guided=False reproduces the PR 4
     # batched searches bit-identically (winner, cost, evaluation count).
     model_guided: bool = False       # rank the grid with a learned cost model

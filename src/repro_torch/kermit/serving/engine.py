@@ -24,12 +24,7 @@ once and caches its steps per configuration:
 in ``cache_dtype``; prefill writes its keys and values into it and decode
 updates it in place, so there is no pad-and-cast copy between them.  The
 cache has the shapes the reference's padded prefill cache has
-(``_serve_cache``): for the vlm family the prompt counts the patches;
-for encdec the decoder holds ``prompt_len // 2`` tokens, so its
-self-attention keys and values get ``prompt_len // 2 + capacity -
-prompt_len`` positions, the cross-attention ones exactly the encoder
-memory's, and decode writes past the last position land on it, as the
-reference's clamped ``dynamic_update_slice`` writes them (ROADMAP C20).
+(``models/model.serve_cache``).
 
 Serving-specific knobs (``configs/base.Tunables``):
 
@@ -42,13 +37,14 @@ Serving-specific knobs (``configs/base.Tunables``):
                  so over-allocated capacity is numerically free
   cache_dtype    KV storage precision ("auto" = model dtype)
 
-The decode graph: on the card, a call of the ``dense`` or ``ssm`` family
-that runs at least two decode steps replays its step from a CUDA graph,
-one launch a step where the eager step issues some 2,800 (a one-step
-call never replays what it would capture, so it runs eagerly, as every
-call on the CPU and of the other families does).  The graph is captured
-on the first such call of its key (``decode_graph_key``: the batch, the
-cache's shapes and dtype, and the Tunables fields the decode step reads)
+The decode graph: on the card, a call that runs at least two decode
+steps of a family whose row in ``models/model.FAMILIES`` has
+``graph_reads`` replays its step from a CUDA graph, one launch a step
+where the eager step issues hundreds to thousands (a one-step call never
+replays what it would capture, so it runs eagerly, as every call on the
+CPU and of the other families does).  The graph is captured on the
+first such call of its key (``decode_graph_key``: the batch, the cache's
+shapes and dtype, and the family's ``graph_reads`` of the Tunables)
 and kept, with its static buffers, for the engine's parameters: the
 serve cache, zeroed and filled by the prefill at the start of each call;
 the step's tokens and position, which the graph advances itself (the
@@ -84,12 +80,6 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import trace as T
 from repro_torch.train.step import make_prefill_step, make_serve_step
 
-# the families whose decode step is replayed from a CUDA graph, and what
-# that step reads of the Tunables (``models/transformer.py:decode_step``,
-# ``models/ssm_lm.py:decode_mamba``, which runs the fused step kernel on
-# "pallas" alone): the only part of them in a graph's key
-_DECODE_READS = {"dense": lambda tun: (tun.attn_q_chunk,),
-                 "ssm": lambda tun: (tun.attn_impl == "pallas",)}
 # the most decode graphs, each with its static cache, an engine keeps
 _DECODE_GRAPHS_MAX = 16
 
@@ -234,10 +224,6 @@ class ServeEngine:
         return fn
 
     def _token_batch(self, prompt_len: int, batch: int):
-        npt = self.cfg.num_patches if self.cfg.family == "vlm" else 0
-        if prompt_len <= npt:
-            raise ValueError(f"{self.cfg.name}'s prompt of {prompt_len} "
-                             f"positions must exceed its {npt} patches")
         key = (prompt_len, batch)
         b = self._batches.get(key)
         if b is None:
@@ -245,19 +231,6 @@ class ServeEngine:
                              ShapeSpec("pf", prompt_len, batch, "prefill"))
             self._batches[key] = b
         return b
-
-    def _serve_cache(self, batch: int, prompt_len: int, capacity: int,
-                     dtype):
-        """The zeroed cache of one serve call, shaped as the reference's
-        prefill cache once padded by ``capacity - prompt_len`` (names k,
-        v, k0, v0; only they take ``cache_dtype``)."""
-        if self.cfg.family == "encdec":
-            return M.init_cache(self.cfg, batch, prompt_len, dtype=dtype,
-                                device=self.device,
-                                self_len=prompt_len // 2 + capacity
-                                - prompt_len)
-        return M.init_cache(self.cfg, batch, capacity, dtype=dtype,
-                            device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -267,22 +240,21 @@ class ServeEngine:
 
     def _graphed(self, steps: int) -> bool:
         """Whether a call of ``steps`` decode steps replays a graph: on
-        the card, for a family in ``_DECODE_READS``, at two steps or
+        the card, for a family with ``graph_reads``, at two steps or
         more."""
         return (steps >= 2 and self.device.type == "cuda"
-                and self.cfg.family in _DECODE_READS)
+                and M.FAMILIES[self.cfg.family].graph_reads is not None)
 
     def decode_graph_key(self, tun: Tunables, batch: int,
                          capacity: int) -> tuple:
         """What a captured decode step depends on besides the weights:
         the shapes and dtypes of the serve cache it updates (they hold the
-        batch, and for the dense family the capacity; the SSM state has
-        none) and what its family's step reads of the Tunables, and
-        nothing else."""
+        batch, and for a KV cache the capacity; an SSM state has none) and
+        its family's ``graph_reads`` of the Tunables, and nothing else."""
         cache = M.init_cache(self.cfg, batch, capacity,
                              dtype=_cache_dtype(tun), device="meta")
         return (tuple((tuple(t.shape), t.dtype) for t in tree_leaves(cache)),
-                _DECODE_READS[self.cfg.family](tun))
+                M.FAMILIES[self.cfg.family].graph_reads(tun))
 
     def _decode_graph(self, tun: Tunables, batch: int, prompt_len: int,
                       capacity: int, decode) -> Optional[_DecodeGraph]:
@@ -304,8 +276,8 @@ class ServeEngine:
         with T.span("engine.capture", batch=batch, capacity=capacity):
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            cache = self._serve_cache(batch, prompt_len, capacity,
-                                      _cache_dtype(tun))
+            cache = M.serve_cache(self.cfg, batch, prompt_len, capacity,
+                                  dtype=_cache_dtype(tun), device=self.device)
             graph = _DecodeGraph(self.params, decode, cache, batch,
                                  self.device, self._graph_pool)
         self._graphs[key] = graph
@@ -353,8 +325,9 @@ class ServeEngine:
 
             with T.span("engine.prefill") as pf:
                 if graph is None:
-                    cache = self._serve_cache(batch, prompt_len, capacity,
-                                              _cache_dtype(tun))
+                    cache = M.serve_cache(self.cfg, batch, prompt_len,
+                                          capacity, dtype=_cache_dtype(tun),
+                                          device=self.device)
                 else:
                     cache = graph.cache
                     for t in tree_leaves(cache):

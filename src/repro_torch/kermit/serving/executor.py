@@ -297,8 +297,7 @@ class ServeExecutor(MeasureCounters):
                         f.shape).astype(np.float32)
         return np.clip(f, 0.0, 1.0)
 
-    # -- durable-session state (KermitSession.checkpoint, which the port's
-    #    session refuses until the durability slice) ----------------------
+    # -- durable-session state (KermitSession.checkpoint / restore) -------
 
     def export_state(self) -> dict:
         state = MeasureCounters.export_state(self)

@@ -70,3 +70,11 @@ def resolve(impl: str | None, device) -> str:
                 "hand-written kernel is the only path (use 'auto')")
         return "plain"
     raise ValueError(f"unknown kernel impl {impl!r}; expected one of {IMPLS}")
+
+
+def takes_kernels(attn_impl: str | None) -> bool:
+    """Whether the models send flash, the SSD scan and the SSM decode step
+    to their kernels (then ``resolve``d by device) under the ``attn_impl``
+    tunable: on ``"pallas"`` alone, as the reference's models do; so
+    ``"auto"`` keeps their plain path (ROADMAP G)."""
+    return attn_impl == "pallas"

@@ -51,28 +51,20 @@ def init(gen: torch.Generator, cfg):
     }
 
 
-def _cross_attn(p, x, mem, cfg, q_chunk):
-    """Cross-attention: queries from x, keys/values from encoder memory."""
-    B, S, _ = x.shape
-    T = mem.shape[1]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (mem @ p["wk"]).reshape(B, T, K, hd)
-    v = (mem @ p["wv"]).reshape(B, T, K, hd)
-    out = L.attention_xla(q, k, v, q_pos=torch.arange(S, device=x.device),
-                          kv_pos=torch.arange(T, device=x.device),
-                          causal=False, q_chunk=q_chunk)
-    out = out.reshape(B, S, H * hd).to(x.dtype)
-    return out @ p["wo"], (k, v)
+def _cross_kv(p, mem, cfg):
+    """The encoder memory's cross-attention keys and values."""
+    shape = (*mem.shape[:2], cfg.n_kv_heads, cfg.hd)
+    return (mem @ p["wk"]).reshape(shape), (mem @ p["wv"]).reshape(shape)
 
 
-def _cross_attn_cached(p, x, xk, xv, cfg):
+def _cross_attn(p, x, xk, xv, cfg, q_chunk=1024):
+    """Cross-attention: queries from x over the memory's keys/values."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     out = L.attention_xla(q, xk, xv, q_pos=torch.arange(S, device=x.device),
                           kv_pos=torch.arange(xk.shape[1], device=x.device),
-                          causal=False)
+                          causal=False, q_chunk=q_chunk)
     return out.reshape(B, S, H * hd).to(x.dtype) @ p["wo"]
 
 
@@ -117,10 +109,10 @@ def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
                              positions=positions, causal=True,
                              q_chunk=tun.attn_q_chunk)
         x = x + h
-        hx, xkv = _cross_attn(p_l["xattn"],
-                              L.rmsnorm(x, p_l["lnx"], cfg.norm_eps), mem,
-                              cfg, tun.attn_q_chunk)
-        x = x + hx
+        xkv = _cross_kv(p_l["xattn"], mem, cfg)
+        x = x + _cross_attn(p_l["xattn"],
+                            L.rmsnorm(x, p_l["lnx"], cfg.norm_eps), *xkv,
+                            cfg, tun.attn_q_chunk)
         x = x + L.mlp_apply(p_l["mlp"], L.rmsnorm(x, p_l["ln2"], cfg.norm_eps))
         return x, kv, xkv
     body = remat(body, tun, x, params["dec_layers"])
@@ -138,34 +130,25 @@ def forward(params, cfg, batch, tun, *, return_cache=False, cache=None):
 
 
 def decode_step(params, cfg, batch, cache, tun):
-    """One-token decode. batch: {"tokens": (B,1), "pos": int}.  Writes
-    this token's self-attention key and value IN PLACE at slot
-    min(pos, S - 1) of the cache's S positions — the reference's
-    ``lax.dynamic_update_slice`` clamps its start index so — and attends
-    with ``kv_len = pos + 1``.  Returns (logits, cache)."""
-    pos = int(batch["pos"])
+    """One-token decode. batch: {"tokens": (B,1), "pos": an int or a
+    0-dim int64 tensor on the device}.  Writes this token's
+    self-attention key and value IN PLACE at slot pos of the cache's S
+    positions, clamped to S - 1 on the device as the reference's
+    ``lax.dynamic_update_slice`` clamps its start index, and attends with
+    ``kv_len = pos + 1``.  Returns (logits, cache)."""
     x = params["embed"][batch["tokens"]]
-    dev = x.device
-    positions = torch.full((1,), pos, device=dev)
     S = cache["k"].shape[2]
-    slot = min(pos, S - 1)
-    kv_pos = torch.arange(S, device=dev)
-    kv_len = pos + 1
+    step = L.decode_positions(batch["pos"], S, x.device)
+    slot = step["positions"].clamp(max=S - 1)
     layers = _unstack(params["dec_layers"], cfg.n_layers)
     for i, p_l in enumerate(layers):
-        ck, cv = cache["k"][i], cache["v"][i]
-        q, k1, v1 = L.attn_qkv(p_l["attn"],
-                               L.rmsnorm(x, p_l["ln1"], cfg.norm_eps), cfg,
-                               positions)
-        ck[:, slot] = k1[:, 0]
-        cv[:, slot] = v1[:, 0]
-        out = L.attention_xla(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
-                              causal=True, kv_len=kv_len)
-        out = out.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
-        x = x + out @ p_l["attn"]["wo"]
-        x = x + _cross_attn_cached(p_l["xattn"],
-                                   L.rmsnorm(x, p_l["lnx"], cfg.norm_eps),
-                                   cache["xk"][i], cache["xv"][i], cfg)
+        x = x + L.attn_decode(p_l["attn"],
+                              L.rmsnorm(x, p_l["ln1"], cfg.norm_eps), cfg,
+                              (cache["k"][i], cache["v"][i]), slot=slot,
+                              **step)
+        x = x + _cross_attn(p_l["xattn"],
+                            L.rmsnorm(x, p_l["lnx"], cfg.norm_eps),
+                            cache["xk"][i], cache["xv"][i], cfg)
         x = x + L.mlp_apply(p_l["mlp"], L.rmsnorm(x, p_l["ln2"], cfg.norm_eps))
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return x @ params["embed"].T, cache

@@ -5,12 +5,15 @@ Layer stacks carry a leading ``L`` axis (the reference's scan layout), and
 every projection is ``x @ W`` with ``W`` shaped (d_in, d_out), so the
 reference's parameters convert leaf by leaf (``repro_torch.convert``).
 
-Attention has two implementations:
+Attention has two implementations, chosen by ``dispatch.takes_kernels``
+of the ``attn_impl`` tunable:
   * ``xla``    — chunked (query-blocked) plain PyTorch attention, the
                  counterpart of the reference's XLA path and the kernel's
                  oracle;
   * ``pallas`` — ``kernels/flash_attention.py``: the hand-written CUDA
                  kernel on a CUDA tensor, its plain version on the CPU.
+
+Every family decodes against its KV cache through ``attn_decode``.
 
 Init helpers draw from an explicit ``torch.Generator`` where the reference
 splits ``jax.random`` keys; the two give different numbers, so tests
@@ -21,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.dispatch import takes_kernels
 
 NEG = -1e30
 
@@ -209,32 +214,55 @@ def attn_qkv(p, x, cfg, positions):
 
 
 def attn_apply(p, x, cfg, *, positions, causal=True, window=None,
-               prefix_len=0, kv=None, kv_pos=None, kv_len=None,
-               q_chunk=1024, impl="xla"):
-    """Full attention block. ``kv``: optional external (k, v) (cross-attn or
-    cache); otherwise self-attention over x.  ``impl="pallas"`` routes to
-    ``kernels/flash_attention.py``, which, like the reference's, ignores
-    ``prefix_len``, ``kv_pos``, ``kv_len`` and any tensor ``window``
-    (ROADMAP C4, C10)."""
+               prefix_len=0, q_chunk=1024, impl="xla"):
+    """Self-attention block over x.  ``impl`` is the ``attn_impl``
+    tunable: ``"pallas"`` routes to ``kernels/flash_attention.py``,
+    which, like the reference's, ignores ``prefix_len`` and any tensor
+    ``window`` (ROADMAP C4, C10)."""
     B, S, _ = x.shape
     q, k, v = attn_qkv(p, x, cfg, positions)
-    if kv is not None:
-        k, v = kv
-    if kv_pos is None:
-        kv_pos = positions if kv is None else torch.arange(
-            k.shape[1], device=x.device)
-    if impl == "pallas":
+    if takes_kernels(impl):
         from repro_torch.kernels import flash_attention as fa
         out = fa.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_softcap, q_pos=positions,
-                                 kv_pos=kv_pos)
+                                 kv_pos=positions)
     else:
-        out = attention_xla(q, k, v, q_pos=positions, kv_pos=kv_pos,
+        out = attention_xla(q, k, v, q_pos=positions, kv_pos=positions,
                             causal=causal, window=window, prefix_len=prefix_len,
-                            softcap=cfg.attn_softcap, kv_len=kv_len,
-                            q_chunk=q_chunk)
+                            softcap=cfg.attn_softcap, q_chunk=q_chunk)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd).to(x.dtype)
     return out @ p["wo"], (k, v)
+
+
+def decode_positions(pos, S: int, device) -> dict:
+    """A decode step's ``positions`` (1,), ``kv_pos`` over the cache's S
+    slots and ``kv_len`` (pos + 1) from ``pos``, an int or a 0-dim int64
+    device tensor, with no host read: an int becomes a device scalar
+    first, so a CUDA graph can capture the step with ``pos`` on the
+    device."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int64, device=device)
+    return dict(positions=pos.view(1), kv_pos=torch.arange(S, device=device),
+                kv_len=pos + 1)
+
+
+def attn_decode(p, x, cfg, kv, *, positions, kv_pos, kv_len, slot=None,
+                window=None, prefix_len=0, softcap=0.0):
+    """The attention block of one decode step against the cache ``kv`` =
+    (ck, cv), (B, S, K, hd) each: this token's key and value written IN
+    PLACE at ``slot`` (default ``positions``) with ``index_copy_``, cast
+    to the cache's dtype, then attention masked to ``kv_len`` (one query
+    row: one chunk) and ``wo``."""
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    ck, cv = kv
+    slot = positions if slot is None else slot
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    out = attention_xla(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
+                        window=window, prefix_len=prefix_len,
+                        softcap=softcap, kv_len=kv_len)
+    out = out.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    return out @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

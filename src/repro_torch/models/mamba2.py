@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as K
 from repro_torch.kernels import ssm_step as SS
+from repro_torch.kernels.dispatch import takes_kernels
 from repro_torch.models import layers as L
 
 
@@ -185,7 +186,7 @@ def mamba2_apply(p, x, cfg, *, chunk: int | None = None, impl: str = "xla"):
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    if impl == "pallas":
+    if takes_kernels(impl):
         y, S_last = K.ssd(xs, dt, A, Bm, Cm, chunk=chunk)
         y = y.to(x.dtype)                           # ROADMAP C12
     else:
@@ -208,7 +209,7 @@ def mamba2_step(p, x, cfg, state, *, impl: str = "xla"):
     zxbcdt = (x @ p["in_proj"])[:, 0]
     args = (zxbcdt, state["conv"], state["ssm"], p["conv_w"], p["conv_b"],
             p["dt_bias"], p["A_log"], p["D_skip"], p["norm"])
-    if impl == "pallas" and zxbcdt.is_cuda:
+    if takes_kernels(impl) and zxbcdt.is_cuda:
         y, new = SS.ssm_step(*args, eps=cfg.norm_eps), state
     else:
         y, new = mixer_step(*args, eps=cfg.norm_eps)

@@ -45,16 +45,9 @@ def ssm_layer_init(gen, cfg, dtype, lead=()):
 
 
 def _ssm_block(p_l, x, cfg, tun):
-    impl = "pallas" if tun.attn_impl == "pallas" else "xla"
     h, st = M2.mamba2_apply(p_l["mixer"],
                             L.rmsnorm(x, p_l["ln"], cfg.norm_eps), cfg,
-                            chunk=tun.ssm_chunk, impl=impl)
-    return x + h, st
-
-
-def _ssm_block_step(p_l, x, cfg, state, impl):
-    h, st = M2.mamba2_step(p_l["mixer"], L.rmsnorm(x, p_l["ln"], cfg.norm_eps),
-                           cfg, state, impl=impl)
+                            chunk=tun.ssm_chunk, impl=tun.attn_impl)
     return x + h, st
 
 
@@ -62,7 +55,10 @@ def _step_into(p_l, x, cfg, st, tun):
     """One SSD layer's decode step against its cache views ``st``, which
     end up holding the new state: the kernel route updates them in place,
     the plain step's new tensors are copied into them."""
-    x, new = _ssm_block_step(p_l, x, cfg, st, tun.attn_impl)
+    h, new = M2.mamba2_step(p_l["mixer"],
+                            L.rmsnorm(x, p_l["ln"], cfg.norm_eps), cfg, st,
+                            impl=tun.attn_impl)
+    x = x + h
     if new is not st:
         _write_state(st, new)
     return x
@@ -187,28 +183,19 @@ def _shared_effective(shared, lora):
 
 
 def _shared_block(shared, lora, x, cfg, tun, *, positions, kv=None,
-                  kv_pos=None, write_pos=None, kv_len=None):
-    """The shared attention+MLP block.  With ``kv``/``write_pos``: decode
-    against the cache (ck, cv) of this group, whose slot ``write_pos`` is
-    written IN PLACE.  Returns (x, (k, v))."""
+                  kv_pos=None, kv_len=None):
+    """The shared attention+MLP block.  With ``kv``: one decode step
+    against this group's cache (ck, cv), written in place
+    (``layers.attn_decode``).  Returns (x, (k, v))."""
     p = _shared_effective(shared, lora)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if write_pos is not None:
-        q, k1, v1 = L.attn_qkv(p["attn"], h, cfg, positions)
-        ck, cv = kv
-        ck[:, write_pos] = k1[:, 0]
-        cv[:, write_pos] = v1[:, 0]
-        out = L.attention_xla(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
-                              causal=True, kv_len=kv_len,
-                              q_chunk=tun.attn_q_chunk)
-        out = out.reshape(x.shape[0], 1, cfg.n_heads * cfg.hd).to(x.dtype)
-        h = out @ p["attn"]["wo"]
-        kv = (ck, cv)
+    if kv is not None:
+        h = L.attn_decode(p["attn"], h, cfg, kv, positions=positions,
+                          kv_pos=kv_pos, kv_len=kv_len)
     else:
         h, kv = L.attn_apply(p["attn"], h, cfg, positions=positions,
                              causal=True, q_chunk=tun.attn_q_chunk,
-                             impl="pallas" if tun.attn_impl == "pallas"
-                             else "xla")
+                             impl=tun.attn_impl)
     x = x + h
     x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, kv
@@ -263,19 +250,15 @@ def forward_zamba(params, cfg, batch, tun, *, return_cache=False, cache=None):
 
 
 def decode_zamba(params, cfg, batch, cache, tun):
-    """One-token decode. batch: {"tokens": (B,1), "pos": int}; ``cache``
-    is updated IN PLACE (KV slot ``pos``, every SSD state) and returned."""
+    """One-token decode. batch: {"tokens": (B,1), "pos": an int or a
+    0-dim int64 tensor on the device}; ``cache`` is updated IN PLACE (KV
+    slot ``pos``, every SSD state) and returned."""
     x = params["embed"][batch["tokens"]]
-    pos = int(batch["pos"])
-    dev = x.device
-    positions = torch.full((1,), pos, device=dev)
-    kv_pos = torch.arange(cache["k"].shape[2], device=dev)
+    step = L.decode_positions(batch["pos"], cache["k"].shape[2], x.device)
     loras, groups, rest = _zamba_layers(params, cfg)
     for g, (lora, layers) in enumerate(zip(loras, groups)):
         x, _ = _shared_block(params["shared"], lora, x, cfg, tun,
-                             positions=positions,
-                             kv=(cache["k"][g], cache["v"][g]), kv_pos=kv_pos,
-                             write_pos=pos, kv_len=pos + 1)
+                             kv=(cache["k"][g], cache["v"][g]), **step)
         for i, p_l in enumerate(layers):
             x = _step_into(p_l, x, cfg, _layer_state(cache["g_ssm"], g, i),
                            tun)

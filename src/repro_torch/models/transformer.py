@@ -151,32 +151,22 @@ def _unstack(stacked, n: int) -> list:
 
 
 def block_apply(p, x, cfg, tun, *, positions, window, prefix_len=0,
-                kv=None, kv_pos=None, kv_len=None, write_pos=None):
-    """One transformer block.  With ``kv``/``write_pos``: decode against
-    the cache (ck, cv), whose slot ``write_pos`` (a (1,) int64 tensor on
-    the device) is written IN PLACE with this token's key and value, cast
-    to the cache's dtype.  Returns (x, (k, v), aux): aux is the MoE
-    layer's load-balancing loss, a 0-dim fp32 zero for a dense layer."""
+                kv=None, kv_pos=None, kv_len=None):
+    """One transformer block.  With ``kv``: one decode step against the
+    cache (ck, cv), written in place (``layers.attn_decode``).  Returns
+    (x, (k, v), aux): aux is the MoE layer's load-balancing loss, a 0-dim
+    fp32 zero for a dense layer."""
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    if write_pos is not None:
-        q, k1, v1 = L.attn_qkv(p["attn"], h, cfg, positions)
-        ck, cv = kv
-        ck.index_copy_(1, write_pos, k1.to(ck.dtype))
-        cv.index_copy_(1, write_pos, v1.to(cv.dtype))
-        out = L.attention_xla(q, ck, cv, q_pos=positions, kv_pos=kv_pos,
-                              causal=True, window=window, prefix_len=prefix_len,
-                              softcap=cfg.attn_softcap, kv_len=kv_len,
-                              q_chunk=tun.attn_q_chunk)
-        B = x.shape[0]
-        out = out.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
-        h = out @ p["attn"]["wo"]
-        new_kv = (ck, cv)
+    if kv is not None:
+        h = L.attn_decode(p["attn"], h, cfg, kv, positions=positions,
+                          kv_pos=kv_pos, kv_len=kv_len, window=window,
+                          prefix_len=prefix_len, softcap=cfg.attn_softcap)
+        new_kv = kv
     else:
-        impl = "pallas" if tun.attn_impl == "pallas" else "xla"
         h, new_kv = L.attn_apply(p["attn"], h, cfg, positions=positions,
                                  causal=True, window=window,
                                  prefix_len=prefix_len,
-                                 q_chunk=tun.attn_q_chunk, impl=impl)
+                                 q_chunk=tun.attn_q_chunk, impl=tun.attn_impl)
     x = x + h
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
@@ -261,25 +251,12 @@ def decode_step(params, cfg, batch, cache, tun):
     """One-token decode. batch: {"tokens": (B,1), "pos": an int or a
     0-dim int64 tensor on the device}.  cache: {"k": (L,B,S,K,hd), "v":
     ...} (+ "k0"/"v0"), updated IN PLACE at ``pos`` and returned.
-    Returns (logits, cache).
-
-    Both forms of ``pos`` run one code path, with no host read and no
-    copy from the host: an int becomes a device scalar first, and the
-    positions, the mask's length and the cache's write index all come
-    from it.  So the step can be captured in a CUDA graph whose ``pos``
-    advances on the device (``kermit/serving/engine.py``)."""
-    pos = batch["pos"]
+    Returns (logits, cache).  Capture-safe (``layers.decode_positions``):
+    a CUDA graph can hold the step with ``pos`` on the device."""
     with T.detail("model.embed"):
         x = _embed_tokens(params, cfg, batch["tokens"])
         dev = x.device
-        if not isinstance(pos, torch.Tensor):
-            pos = torch.full((), int(pos), dtype=torch.int64, device=dev)
-        positions = pos.view(1)
-        S = cache["k"].shape[2]
-        kv_pos = torch.arange(S, device=dev)
-    kv_len = pos + 1
-    step = dict(positions=positions, kv_pos=kv_pos, kv_len=kv_len,
-                write_pos=positions)
+        step = L.decode_positions(batch["pos"], cache["k"].shape[2], dev)
     n_scan = _n_scan(cfg)
     first = cfg.n_layers - n_scan
     if "layer0" in params:

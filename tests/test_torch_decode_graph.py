@@ -1,21 +1,27 @@
 """The decode step's capture-safe form and the serving engine's choice of
 the decode graph, on the CPU.
 
-``decode_step`` (dense, vlm) and ``decode_mamba`` (ssm) with ``pos`` as
-a 0-dim int64 tensor give logits and caches equal, bit for bit, to
-``pos`` as an int, step after step.  ``ServeEngine.decode_graph_key``
-holds only what a captured step depends on: the batch, the cache's
-shapes and dtype and the Tunables fields the step reads (not
-``prefill_chunk``).  On the CPU, and for a one-step call, no graph is
-captured and the eager loop runs (``tests/test_torch_decode_graph_cuda.py``
-holds the replay itself on the card).
+Every family's decode step (``decode_step`` for dense, moe and vlm,
+``decode_mamba``, ``decode_zamba``, the encdec step) with ``pos`` as a
+0-dim int64 tensor gives logits and caches equal, bit for bit, to
+``pos`` as an int, step after step, encdec's clamped writes included.
+``models/model.FAMILIES`` replays the dense and ssm steps only.
+``ServeEngine.decode_graph_key`` holds only what a captured step depends
+on: the batch, the cache's shapes and dtype and the Tunables fields the
+step reads (not ``prefill_chunk``, not ``attn_q_chunk``).  On the CPU,
+and for a one-step call, no graph is captured and the eager loop runs
+(``tests/test_torch_decode_graph_cuda.py`` holds the replay itself on
+the card).
 """
 import pytest
 import torch
 
 from repro_torch.configs.base import ShapeSpec, Tunables
 from repro_torch.kermit.serving import ServeEngine, tiny_config
+from repro_torch.models import encdec as ED
 from repro_torch.models import model as M
+from repro_torch.models import ssm_lm as S
+from repro_torch.models import transformer as TR
 from repro_torch.runtime import trace as T
 
 TUN = Tunables()
@@ -34,7 +40,10 @@ def _clone(tree):
 
 @pytest.mark.parametrize("arch,prompt", [("qwen2-1.5b", 12),
                                          ("mamba2-1.3b", 12),
-                                         ("paligemma-3b", 20)])
+                                         ("paligemma-3b", 20),
+                                         ("deepseek-moe-16b", 12),
+                                         ("zamba2-7b", 12),
+                                         ("seamless-m4t-large-v2", 12)])
 def test_tensor_pos_equals_int_pos_bit_for_bit(arch, prompt):
     cfg = tiny_config(arch)
     gen = torch.Generator().manual_seed(3)
@@ -43,22 +52,27 @@ def test_tensor_pos_equals_int_pos_bit_for_bit(arch, prompt):
     for p in _leaves(params):
         p.add_(0.05 * torch.randn(p.shape, generator=gen))
     batch = M.make_batch(gen, cfg, ShapeSpec("pf", prompt, 3, "prefill"))
-    cache = M.init_cache(cfg, 3, prompt + 8, device="cpu")
+    # encdec: 6 tokens + 8 self positions, so pos 14 and 17 land on slot 13
+    cache = M.serve_cache(cfg, 3, prompt, prompt + 8, device="cpu")
     logits, cache = M.prefill(params, cfg, batch, TUN, cache=cache)
     a, b = cache, _clone(cache)
     tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-    for pos in (prompt, prompt + 1, prompt + 2, prompt + 5):
+    steps = (prompt, prompt + 1, prompt + 2, prompt + 5)
+    for pos in steps:
         la, a = M.decode(params, cfg, {"tokens": tok, "pos": pos}, a, TUN)
         lb, b = M.decode(params, cfg, {"tokens": tok, "pos": torch.tensor(
             pos, dtype=torch.int64)}, b, TUN)
         assert torch.equal(la, lb)
         assert all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
         tok = torch.argmax(la[:, -1], -1)[:, None].to(torch.int32)
-    # the step wrote its key and value at every position it was given
+    # the step wrote its key and value at every position it was given,
+    # clamped to the last slot
     if "k" in a:
-        filled = a["k"].abs().sum(dim=(0, 1, 3, 4)) > 0
-        assert filled[:prompt + 3].all() and filled[prompt + 5]
-        assert not filled[prompt + 3] and not filled[prompt + 6:].any()
+        S = a["k"].shape[2]
+        want = torch.zeros(S, dtype=torch.bool)
+        want[:prompt // 2 if cfg.family == "encdec" else prompt] = True
+        want[[min(pos, S - 1) for pos in steps]] = True
+        assert torch.equal(a["k"].abs().sum(dim=(0, 1, 3, 4)) > 0, want)
 
 
 def test_graph_key_splits_on_batch_capacity_and_what_decode_reads():
@@ -69,12 +83,13 @@ def test_graph_key_splits_on_batch_capacity_and_what_decode_reads():
     assert eng.decode_graph_key(TUN.replace(ssm_chunk=16, remat="full"),
                                 2, 64) == key
     assert eng.decode_graph_key(TUN.replace(serve_batch=2), 2, 64) == key
+    # one query row is one chunk: attn_q_chunk does not split the graph
+    assert eng.decode_graph_key(TUN.replace(attn_q_chunk=512), 2, 64) == key
     # the batch, the capacity, the cache's dtype and what the step reads do
     assert eng.decode_graph_key(TUN, 4, 64) != key
     assert eng.decode_graph_key(TUN, 2, 128) != key
     assert eng.decode_graph_key(TUN.replace(cache_dtype="bfloat16"),
                                 2, 64) != key
-    assert eng.decode_graph_key(TUN.replace(attn_q_chunk=512), 2, 64) != key
     # "auto" is the model's dtype: one cache, one key
     assert eng.decode_graph_key(TUN.replace(cache_dtype="float32"),
                                 2, 64) == key
@@ -102,6 +117,27 @@ def test_ssm_graph_key_splits_on_attn_impl():
     for impl in ("auto", "fast", "xla"):
         assert eng.decode_graph_key(TUN.replace(attn_impl=impl), 2, 64) \
             == key, impl
+
+
+def test_the_family_table_replays_dense_and_ssm_only():
+    rows = {"dense": (TR.init, TR.forward, TR.decode_step, TR.init_cache),
+            "moe": (TR.init, TR.forward, TR.decode_step, TR.init_cache),
+            "vlm": (TR.init, TR.forward, TR.decode_step, TR.init_cache),
+            "ssm": (S.init_mamba, S.forward_mamba, S.decode_mamba,
+                    S.cache_mamba),
+            "hybrid": (S.init_zamba, S.forward_zamba, S.decode_zamba,
+                       S.cache_zamba),
+            "encdec": (ED.init, ED.forward, ED.decode_step, ED.init_cache)}
+    assert set(M.FAMILIES) == set(rows)
+    for family, fns in rows.items():
+        assert M.FAMILIES[family][:4] == fns, family
+    replayed = {f for f, row in M.FAMILIES.items()
+                if row.graph_reads is not None}
+    assert replayed == {"dense", "ssm"}
+    assert M.FAMILIES["dense"].graph_reads(TUN) == ()
+    assert M.FAMILIES["ssm"].graph_reads(TUN) == (False,)
+    assert M.FAMILIES["ssm"].graph_reads(
+        TUN.replace(attn_impl="pallas")) == (True,)
 
 
 @pytest.mark.parametrize("arch,graphed", [
